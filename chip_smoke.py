@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's decode path once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``rasr_tpu_torch/csrc/``, holds
-each against its plain PyTorch version at the main path's shapes, runs
-the planted two-word canary, then pushes batches of synthetic 10 s audio
-through the full-width benchmark setup (5k words, 2000 x 8 x 45 GMMs,
-K=1024): ``FeatureFrontend -> GmmFeatureScorer -> decode_scores_device ->
-results_from_device``. Launch counters show that the run went through
-both kernels, and a small batch decoded on the card and on the CPU must
-agree. Prints per-stage times tagged with the card's name and power
+Builds the hand-written CUDA kernels from ``rasr_tpu_torch/csrc/`` and
+holds each against its plain PyTorch version at its path's shapes and at
+ragged ones. Then it drives every path of the port, each with the launch
+counters set to 0 just before it and read just after:
+
+- the word-end and row-gather microbenches
+  (``rasr_tpu_torch.examples.wordend_microbench`` / ``gather_microbench``),
+  which time their kernel against its plain version;
+- the planted two-word canary under both of bench.py's canary configs;
+- the main path: batches of synthetic 10 s audio through the full-width
+  benchmark setup (5k words, 2000 x 8 x 45 GMMs, K=1024) under bench.py's
+  production beam (root select 512, deferred emission, root-arc cap 160),
+  ``FeatureFrontend -> GmmFeatureScorer -> decode_scores_device ->
+  results_from_device``;
+- the same setup under decoder slice A's beam, at reduced depth.
+
+A small batch decoded on the card and on the CPU must agree under both
+beams. Prints per-stage times tagged with the card's name and power
 limit, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs a CUDA card and the
@@ -29,11 +39,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # accumulate per thread with FMAs, cuBLAS in its own tiling):
 GMM_RTOL, GMM_ATOL = 1e-5, 1e-3  # scores ~50-150: ~1e-7 relative rounding
 MFCC_RTOL, MFCC_ATOL = 2e-4, 2e-4  # the reference's own kernel tolerance
+# the word-end and row-gather kernels are held bit-equal (torch.equal):
+# one gather per output, two fp32 adds in the plain version's order
 # CUDA vs CPU decode of the same scores: identical float ops, so words
 # must match exactly; scores within bench.py's cross-backend 1e-2
 DECODE_RTOL = 1e-2
 
 BATCH, AUDIO_S, TIMED_BATCHES = 64, 10.0, 2
+SLICE_A_BATCH = 16  # slice A at reduced depth: one timed batch
 
 
 def card_tag() -> str:
@@ -42,21 +55,6 @@ def card_tag() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` in ms (CUDA events, after a warm-up)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -75,6 +73,14 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return float(err.max().item())
 
 
+def check_equal(name, got, want) -> None:
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{name}: output {i} differs from the plain version")
+
+
 def main() -> int:
     import torch
 
@@ -85,7 +91,8 @@ def main() -> int:
     import numpy as np
 
     from rasr_tpu_torch import _build
-    from rasr_tpu_torch.device import cuda_device
+    from rasr_tpu_torch.device import cuda_device, cuda_ms
+    from rasr_tpu_torch.examples import gather_microbench, wordend_microbench
     from rasr_tpu_torch.host import (
         Allophone, AllophoneState, HmmTopology, Lexicon, MonophoneStateTying,
         NgramLm, TransitionModel, build_default_silence,
@@ -94,22 +101,36 @@ def main() -> int:
     from rasr_tpu_torch.ops.frontend import FrontendConfig, frame_signal, num_frames, preemphasize
     from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain
     from rasr_tpu_torch.ops.kernels.mfcc import folded_bases, mfcc_frames, mfcc_frames_plain
+    from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain
+    from rasr_tpu_torch.ops.kernels.wordend import WORD_NONE, wordend_block, wordend_block_plain
     from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
     from rasr_tpu_torch.search.tree import build_prefix_tree
-    from rasr_tpu_torch.synthetic import build_setup
+    from rasr_tpu_torch.synthetic import SLICE_A_BEAM, build_setup
 
     dev = cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = card_tag()
     name = torch.cuda.get_device_name(0)
+    counted = (gmm_scores, mfcc_frames, wordend_block, row_gather)
 
     def say(msg):
         print(f"[{tag}] {msg}", flush=True)
 
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def read_counts(path, *kernels):
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        for k, v in counts.items():
+            if v < 1:
+                raise AssertionError(f"the {path} never launched {k}")
+        return counts
+
     t0 = time.time()
     _build.library()
-    say(f"kernel build {time.time() - t0:.2f} s")
+    say(f"kernel build {time.time() - t0:.2f} s (one nvcc per source, in parallel)")
     for line in _build.build_log.splitlines():
         if "registers" in line:  # ptxas: per-kernel registers / shared memory
             sys.stderr.write(line.strip() + "\n")
@@ -164,7 +185,48 @@ def main() -> int:
         f"plain {mfcc_plain_ms:.3f} ms, max abs err {mfcc_err:.3e}")
     del frames, got, ref
 
-    # ----------------------------------------------------- planted canary
+    # ------------------- kernel phase: word-end block and row gather, ragged
+    for shape in (dict(B=3, KW=1000, S1=5003, C=1999, C_sp=12),
+                  dict(B=5, KW=7, S1=11, C=3, C_sp=5)):
+        w_state, w_score, combo, emis = wordend_microbench.make_inputs(**shape)
+        combo[w_state[0, 0], 0] = WORD_NONE
+        args = [torch.from_numpy(x).to(dev) for x in (w_state, w_score, combo, emis)]
+        before = wordend_block.launches
+        got = wordend_block(*args, shape["C_sp"])
+        torch.cuda.synchronize()
+        if wordend_block.launches != before + 1:
+            raise AssertionError("wordend_block did not launch its kernel")
+        check_equal(f"wordend_block {shape}", got, wordend_block_plain(*args, shape["C_sp"]))
+    for S_, C_, N_ in ((56432, 16, 65536), (1000, 5, 777), (300, 8, 1)):
+        table, idx = (torch.from_numpy(x).to(dev)
+                      for x in gather_microbench.make_inputs(S_, C_, N_, seed=C_))
+        before = row_gather.launches
+        got = row_gather(table, idx)
+        torch.cuda.synchronize()
+        if row_gather.launches != before + 1:
+            raise AssertionError("row_gather did not launch its kernel")
+        check_equal(f"row_gather S={S_} C={C_} N={N_}", [got], [row_gather_plain(table, idx)])
+    say("wordend_block and row_gather bit-equal to their plain versions at ragged shapes")
+
+    # ----------------- the microbench paths (their own entry points)
+    reset_counts()
+    we_run = wordend_microbench.run(dev)
+    we_launches = read_counts("word-end microbench", wordend_block)
+    reset_counts()
+    ga_run = gather_microbench.run(dev)
+    ga_launches = read_counts("gather microbench", row_gather)
+    for path, run in (("word-end", we_run), ("gather", ga_run)):
+        if not run["correct"]:
+            raise AssertionError(f"{path} microbench: kernel differs from its plain version")
+    say(f"wordend_block {wordend_microbench.SHAPE}: device time kernel {we_run['ms']:.4f} ms, "
+        f"plain {we_run['plain_ms']:.4f} ms; per eager call {we_run['eager_ms']:.4f} ms, "
+        f"plain {we_run['plain_eager_ms']:.4f} ms; launches {we_launches}")
+    say(f"row_gather {gather_microbench.SHAPE}: device time kernel {ga_run['ms']:.4f} ms "
+        f"({ga_run['ns_per_row']:.3f} ns/row), plain {ga_run['plain_ms']:.4f} ms; per eager "
+        f"call {ga_run['eager_ms']:.4f} ms, plain {ga_run['plain_eager_ms']:.4f} ms; "
+        f"launches {ga_launches}")
+
+    # ------------------------- planted canary under both bench.py configs
     lex = Lexicon()
     build_default_silence(lex)
     lex.add_lemma(["AB"], [(["a", "b"], 0.0)])
@@ -181,56 +243,78 @@ def main() -> int:
     emis = np.full((1, len(seq), tying.num_classes), 50.0, np.float32)
     for t, c in enumerate(seq):
         emis[0, t, c] = 0.0
-    dec = TreeDecoder(tree, compile_ngram(lm),
-                      BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5), device=dev)
-    (res,) = dec.decode_scores(torch.from_numpy(emis).to(dev), np.array([len(seq)]))
-    got_words = [lemma.primary_orth for lemma in res.lemmas]
-    if got_words != ["[SILENCE]", "AB"] or res.word_ends != [1, 5]:
-        raise AssertionError(f"planted canary: {got_words} @ {res.word_ends}")
-    say("canary ok: [SILENCE] AB @ [1, 5]")
+    for canary_beam in (  # bench.py:332-337
+        BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5),
+        BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5, root_hyps=4, root_select=8,
+                   root_arc_limit=2, branch_hyps=16, deferred_emission=True),
+    ):
+        dec = TreeDecoder(tree, compile_ngram(lm), canary_beam, device=dev)
+        (res,) = dec.decode_scores(torch.from_numpy(emis).to(dev), np.array([len(seq)]))
+        got_words = [lemma.primary_orth for lemma in res.lemmas]
+        if got_words != ["[SILENCE]", "AB"] or res.word_ends != [1, 5]:
+            raise AssertionError(f"planted canary ({canary_beam}): {got_words} @ {res.word_ends}")
+    say("canary ok: [SILENCE] AB @ [1, 5] (plain + rsel/defer/caps)")
 
-    # ------------------------------------------- full-width main path
-    def main_path():
+    # ------------------------------------------------------ decode paths
+    def run_batch(decoder, x, n):
         t_a = time.time()
-        f, nf = s.frontend(samples, lengths)
+        f, nf = s.frontend(x, n)
         torch.cuda.synchronize()
         t_b = time.time()
         e = s.scorer(f)
         torch.cuda.synchronize()
         t_c = time.time()
-        results = s.decoder.results_from_device(s.decoder.decode_scores_device(e, nf))
+        results = decoder.results_from_device(decoder.decode_scores_device(e, nf))
         t_d = time.time()
-        return f, e, nf, results, (t_b - t_a, t_c - t_b, t_d - t_c)
+        return f, e, nf, results, np.array([t_b - t_a, t_c - t_b, t_d - t_c])
 
-    main_path()  # warm-up: cuBLAS handles, allocator, first launches
-    gmm_scores.launches = 0
-    mfcc_frames.launches = 0
+    def check_outputs(f, e, nf, results, B):
+        D = s.frontend.output_dim
+        if tuple(f.shape) != (B, T, D) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"features: shape {tuple(f.shape)} or non-finite")
+        if tuple(e.shape) != (B, T, st.num_mixtures) or not bool(torch.isfinite(e).all()):
+            raise AssertionError(f"emissions: shape {tuple(e.shape)} or non-finite")
+        if not bool((nf == T).all()):
+            raise AssertionError("frame counts disagree with the audio length")
+        if len(results) != B or not all(np.isfinite(r.score) and r.words for r in results):
+            raise AssertionError("decode produced an empty or non-finite result")
+
+    def report(label, stage, batches, B, counts, peak=None):
+        fe_s, sc_s, dec_s = stage / batches
+        say(f"{label} B={B} x {AUDIO_S:g} s ({T} frames), per batch: frontend "
+            f"{fe_s * 1e3:.1f} ms, scorer {sc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms")
+        extra = f"; peak device memory {peak / 2**30:.2f} GiB" if peak is not None else ""
+        say(f"{label} throughput {batches * B * AUDIO_S / stage.sum():.1f} audio-s/s; "
+            f"launches {counts}{extra}")
+
+    # main path: full width, bench.py's production beam
+    run_batch(s.decoder, samples, lengths)  # warm-up: cuBLAS handles, allocator, first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
     stage = np.zeros(3)
     for _ in range(TIMED_BATCHES):
-        f, e, nf, results, dt = main_path()
+        f, e, nf, results, dt = run_batch(s.decoder, samples, lengths)
         stage += dt
-    launches = {"gmm_scores": gmm_scores.launches, "mfcc_frames": mfcc_frames.launches}
-    for k, v in launches.items():
-        if v < 1:
-            raise AssertionError(f"the main path never launched {k}")
-    D = s.frontend.output_dim
-    if tuple(f.shape) != (BATCH, T, D) or not bool(torch.isfinite(f).all()):
-        raise AssertionError(f"features: shape {tuple(f.shape)} or non-finite")
-    if tuple(e.shape) != (BATCH, T, st.num_mixtures) or not bool(torch.isfinite(e).all()):
-        raise AssertionError(f"emissions: shape {tuple(e.shape)} or non-finite")
-    if not bool((nf == T).all()):
-        raise AssertionError("frame counts disagree with the audio length")
-    if len(results) != BATCH or not all(np.isfinite(r.score) and r.words for r in results):
-        raise AssertionError("decode produced an empty or non-finite result")
-    audio = TIMED_BATCHES * BATCH * AUDIO_S
-    fe_s, sc_s, dec_s = stage / TIMED_BATCHES
-    say(f"main path B={BATCH} x {AUDIO_S:g} s ({T} frames), per batch: frontend "
-        f"{fe_s * 1e3:.1f} ms, scorer {sc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms")
-    say(f"throughput {audio / stage.sum():.1f} audio-s/s (K={s.beam.max_hyps}, "
-        f"{len(s.tree.lemmas)} lemmas); launches {launches}")
+    launches = read_counts("main path", gmm_scores, mfcc_frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_outputs(f, e, nf, results, BATCH)
+    report("main path (production beam)", stage, TIMED_BATCHES, BATCH, launches, peak)
     say(f"sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
+    del f, e, results
 
-    # ------------------------------------- CUDA decode == CPU decode
+    # slice A: the same setup without the slice-B pruning, reduced depth
+    dec_a = TreeDecoder(s.tree, compile_ngram(s.lm), SLICE_A_BEAM, device=dev)
+    xa, na = samples[:SLICE_A_BATCH], lengths[:SLICE_A_BATCH]
+    run_batch(dec_a, xa[:, :16000], torch.full_like(na, 16000))  # warm-up on 1 s, as the main path's
+    reset_counts()
+    f, e, nf, results, stage = run_batch(dec_a, xa, na)
+    launches_a = read_counts("slice A path", gmm_scores, mfcc_frames)
+    check_outputs(f, e, nf, results, SLICE_A_BATCH)
+    report("slice A", stage, 1, SLICE_A_BATCH, launches_a)
+    del f, e, results
+
+    # ------------------------- CUDA decode == CPU decode, both beams
     small = int(3.0 * 16000)
     x2 = samples[:2, :small]
     f2, nf2 = s.frontend(x2, torch.full((2,), small, device=dev))
@@ -239,12 +323,16 @@ def main() -> int:
     f2c, _ = s_cpu.frontend(x2.cpu(), torch.full((2,), small))
     check_close("features cuda vs cpu", f2.cpu(), f2c, 1e-3, 1e-3)
     check_close("emissions cuda vs cpu", e2.cpu(), s_cpu.scorer(f2c), 1e-4, 1e-2)
-    on_card = s.decoder.decode_scores(e2, nf2)
-    on_cpu = s_cpu.decoder.decode_scores(e2.cpu(), nf2.cpu())
-    for a, b in zip(on_card, on_cpu):
-        if a.words != b.words or abs(a.score - b.score) > DECODE_RTOL * max(1.0, abs(b.score)):
-            raise AssertionError(f"cuda vs cpu decode: {a.words} {a.score} vs {b.words} {b.score}")
-    say(f"cuda == cpu decode on B=2 x 3 s: {[r.orth[:40] for r in on_card]}")
+    dec_a_cpu = TreeDecoder(s_cpu.tree, compile_ngram(s_cpu.lm), SLICE_A_BEAM)
+    for label, on_dev, on_host in (("production", s.decoder, s_cpu.decoder),
+                                   ("slice A", dec_a, dec_a_cpu)):
+        on_card = on_dev.decode_scores(e2, nf2)
+        on_cpu = on_host.decode_scores(e2.cpu(), nf2.cpu())
+        for a, b in zip(on_card, on_cpu):
+            if a.words != b.words or abs(a.score - b.score) > DECODE_RTOL * max(1.0, abs(b.score)):
+                raise AssertionError(
+                    f"cuda vs cpu decode ({label}): {a.words} {a.score} vs {b.words} {b.score}")
+        say(f"cuda == cpu decode ({label} beam) on B=2 x 3 s: {[r.orth[:40] for r in on_card]}")
 
     record = {"kernels": [
         {"name": "gmm_scores", "route": "cuda", "source": "rasr_tpu_torch/csrc/gmm_fused.cu",
@@ -255,6 +343,15 @@ def main() -> int:
          "replaces": "rasr_tpu/ops/pallas/frontend_kernel.py:50",
          "launches": launches["mfcc_frames"], "max_abs_err": mfcc_err,
          "ms": mfcc_ms, "plain_ms": mfcc_plain_ms},
+        {"name": "wordend_block", "route": "cuda",
+         "source": "rasr_tpu_torch/csrc/wordend_fused.cu",
+         "replaces": "examples/pallas_wordend_microbench.py:81",
+         "launches": we_launches["wordend_block"], "max_abs_err": we_run["max_abs_err"],
+         "ms": we_run["ms"], "plain_ms": we_run["plain_ms"]},
+        {"name": "row_gather", "route": "cuda", "source": "rasr_tpu_torch/csrc/row_gather.cu",
+         "replaces": "examples/pallas_gather_microbench.py:36",
+         "launches": ga_launches["row_gather"], "max_abs_err": ga_run["max_abs_err"],
+         "ms": ga_run["ms"], "plain_ms": ga_run["plain_ms"]},
     ]}
     print(json.dumps(record))
     print(tag)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects link into
+ONE shared library with a plain C interface, at first use, under
 ``csrc/build/`` (git-ignored). The library is loaded with ``ctypes``:
 device pointers and the CUDA stream pass as ``c_void_p``, sizes as
 ``c_int``. Every C entry point returns ``cudaGetLastError()`` after its
@@ -19,16 +20,14 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # name -> argtypes of each C entry point (all return cudaError_t as int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +40,13 @@ ENTRY_POINTS = {
         _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
         _I, _I, _I, _I, ctypes.c_float, _P,
     ],
+    # w_state, w_score, combo, emis, pre, w2, word, lemma, next, spk,
+    # n = B * KW, KW, combo width, C, C_sp, stream
+    "wordend_block_launch": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P,
+    ],
+    # table, idx, out, N, C, vec4, stream
+    "row_gather_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -78,22 +84,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"librasr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    return proc.stderr
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    """Compile ``csrc/*.cu`` (one nvcc per file, all at once) and link the
+    shared library, unless it exists."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, srcs = _nvcc(), _sources()
+    objs = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    build_log = proc.stderr
-    os.replace(tmp, out)
+    try:
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(_nvcc_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                                             for src, obj in zip(srcs, objs)]))
+        logs.append(_nvcc_run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]))
+        build_log = "".join(logs)
+        os.replace(tmp, out)
+    finally:
+        for path in [*objs, tmp]:
+            path.unlink(missing_ok=True)
     return out
 
 

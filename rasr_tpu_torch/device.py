@@ -1,4 +1,4 @@
-"""Device selection for the port's main path."""
+"""Device selection for the port's main path, and device timing."""
 
 from __future__ import annotations
 
@@ -15,3 +15,43 @@ def cuda_device(index: int = 0) -> torch.device:
             f"CUDA device {index} requested, {torch.cuda.device_count()} visible"
         )
     return torch.device("cuda", index)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` calls, after one
+    warm-up call (CUDA events around the run of calls)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` in ms with the host's dispatch taken
+    out: ``reps`` calls captured into one CUDA graph, replayed once to
+    warm up and once between CUDA events. ``fn`` must launch on the
+    current stream and must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

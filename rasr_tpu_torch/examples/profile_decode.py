@@ -1,0 +1,106 @@
+"""Profile the port's decoder frame loop on one CUDA card.
+
+Builds the benchmark setup (``rasr_tpu_torch.synthetic.build_setup``) on
+the card, scores ``BATCH`` = 64 utterances of 10 s of noise, decodes their
+``FRAMES`` = 998 frames once to warm up and once timed on the host clock
+(ending in a synchronize), then their first ``PROFILE_FRAMES`` = 50 frames
+under ``torch.profiler``. Prints one JSON line: wall ms per frame of the
+timed decode, and of the profiled window kernel launches per frame
+(copies and memsets left out), device ms per frame (the sum of kernel
+and copy durations), the device's busy share, and the kernels that take
+most device time:
+
+    python -m rasr_tpu_torch.examples.profile_decode [--beam slice_a]
+
+The counterpart of ``examples/profile_decode.py`` (the JAX package's HLO
+profile).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..device import cuda_device
+from ..synthetic import PRODUCTION_BEAM, SLICE_A_BEAM, build_setup
+
+BEAMS = {"production": PRODUCTION_BEAM, "slice_a": SLICE_A_BEAM}
+BATCH, FRAMES, PROFILE_FRAMES, TOP = 64, 998, 50, 12
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def profile(device, beam: str) -> dict:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the profile times a CUDA card, got {device}")
+    s = build_setup(device=device, beam=BEAMS[beam])
+    samples = (FRAMES + 3) * 160 + 400  # 10 ms shift, 25 ms window: >= FRAMES frames
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.normal(size=(BATCH, samples)) * 0.1).astype(np.float32)).to(device)
+    feats, _ = s.frontend(x, torch.full((BATCH,), samples, device=device))
+    emis = s.scorer(feats)[:, :FRAMES].contiguous()
+
+    def decode(f):
+        out = s.decoder.decode_scores_device(
+            emis[:, :f], torch.full((BATCH,), f, dtype=torch.int64, device=device))
+        torch.cuda.synchronize()
+        return out
+
+    decode(FRAMES)
+    t0 = time.perf_counter()
+    decode(FRAMES)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        decode(PROFILE_FRAMES)
+        window_us = (time.perf_counter() - t0) * 1e6
+    on_device = [ev for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [ev for ev in on_device if not ev.name.startswith(("Memcpy", "Memset"))]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in on_device]
+    by_name = defaultdict(float)
+    for ev in on_device:
+        by_name[ev.name] += ev.time_range.elapsed_us()
+    device_us = sum(by_name.values())
+    return {
+        "beam": beam, "batch": BATCH, "frames": FRAMES, "profile_frames": PROFILE_FRAMES,
+        "wall_ms_per_frame": wall_ms / FRAMES,
+        "profiled_wall_ms_per_frame": window_us / 1e3 / PROFILE_FRAMES,
+        "launches_per_frame": len(kernels) / PROFILE_FRAMES,
+        "device_ops_per_frame": len(on_device) / PROFILE_FRAMES,
+        "device_ms_per_frame": device_us / 1e3 / PROFILE_FRAMES,
+        "busy_share": _busy_us(spans) / window_us if spans else 0.0,
+        "top": [{"name": k[:80], "ms_per_frame": v / 1e3 / PROFILE_FRAMES,
+                 "share": v / device_us}
+                for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--beam", choices=sorted(BEAMS), default="production")
+    out = profile(cuda_device(), ap.parse_args(argv).beam)
+    if not out["launches_per_frame"]:
+        raise RuntimeError("the profiler saw no device kernels")
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,20 +1,29 @@
 """Vectorized frame-synchronous beam search over the prefix tree, in PyTorch.
 
-Counterpart of ``rasr_tpu/search/decoder.py`` (slice A: the within-word
-network, unigram LM lookahead, the dense branch fan and an n-gram LM in
-hash tables). A hypothesis is a dense slot ``(tree_state, lm_state,
-score, bp)``; per frame, batched over utterances:
+Counterpart of ``rasr_tpu/search/decoder.py`` (slices A and B: the
+within-word network, unigram LM lookahead, the dense branch fan, an
+n-gram LM in hash tables, and the pruning options ``root_arc_limit``,
+``root_select``, ``deferred_emission``, ``expansion_limit`` and
+``word_end_rank_lm``). A hypothesis is a dense slot ``(tree_state,
+lm_state, score, bp)``; per frame, batched over utterances:
 
 1. expansion: self loop, the two dense arcs, the branch fan of the top
    ``branch_hyps`` hypotheses at fan-out states, and the root fan-out of
-   the top ``root_hyps`` hypotheses at the root;
-2. the frame's emission score of each candidate's destination state;
+   the top ``root_hyps`` hypotheses at the root (all G arcs for the
+   best, the first ``root_arc_limit`` for the others); with
+   ``root_select`` the root fan-out is cut to its R3 best by
+   pre-emission score and kept out of steps 3-4;
+2. the frame's emission score of each candidate's destination state
+   (of the top ``expansion_limit`` only; or, with ``deferred_emission``,
+   of the K + R3 survivors after step 4);
 3. the acoustic beam;
 4. exact recombination by (tree_state, lm_state), keeping each key's
    best score, then histogram top-K;
-5. word ends: pre-LM top-R (slot index breaks ties), the LM lookup, the
-   word-end beam, traceback records and root re-entry;
-6. top-K over the K beam slots plus the R re-entries;
+5. word ends over the beam plus the root-select survivors: pre-LM top-R
+   (slot index breaks ties; ranked with a static unigram bias under
+   ``word_end_rank_lm``), the LM lookup, the word-end beam, traceback
+   records and root re-entry;
+6. top-K over the K + R3 slots plus the R re-entries;
 7. utterances past their ``n_frames`` freeze, and each utterance's
    final beam is captured at ``t == n_frames - 1``.
 
@@ -205,10 +214,8 @@ def tree_to_device(tree: PrefixTree, device="cpu") -> TreeTables:
 class BeamConfig:
     """Pruning parameters (same fields as the reference's BeamConfig).
 
-    Options of the reference's later decoder slices raise
-    ``NotImplementedError`` in :class:`TreeDecoder`: ``root_select``,
-    ``deferred_emission``, ``branch_width``, ``expansion_limit``,
-    ``root_arc_limit``, ``word_end_rank_lm`` and
+    Options of the reference's decoder slice C raise
+    ``NotImplementedError`` in :class:`TreeDecoder`: ``branch_width`` and
     ``lookahead_update="survivor"``. ``scan_unroll`` has no meaning here
     (PyTorch runs the frame loop eagerly) and ``force_unpacked_keys``
     selects the two-sort recombination, whose results are identical."""
@@ -218,13 +225,23 @@ class BeamConfig:
     word_end_limit: int = 128  # R: word-end survivors / records per frame
     #: relative beam over the R word-end records after the exact LM cost
     word_end_beam: float = 1e9
+    #: rank word-end candidates by path score + the word's static unigram
+    #: cost (selection only: the bias is undone on the R survivors)
     word_end_rank_lm: bool = False
     root_hyps: int = 32  # H: root (re-entry) hyps expanded per frame
     branch_hyps: int = 0  # Kb: hyps expanded through branch arcs (0 = K)
     branch_width: int = 0
+    #: E: keep the E best candidates by pre-emission score before the
+    #: emission gather (0 = off; ignored under ``deferred_emission``)
     expansion_limit: int = 0
+    #: non-best root hypotheses expand only the first root_arc_limit root
+    #: arcs in static promise order (0 = all)
     root_arc_limit: int = 0
+    #: R3: pre-emission top-R3 over the root fan-out, kept out of the main
+    #: recombination; the survivors join the word-end scan and the merge
     root_select: int = 0
+    #: add the frame's emission after recombination + top-K, to the K + R3
+    #: survivors only (the beam cuts rank pre-emission scores)
     deferred_emission: bool = False
     lm_scale: float = 1.0
     #: weight of the unigram lookahead potential (x lm_scale); exact
@@ -236,11 +253,7 @@ class BeamConfig:
     force_unpacked_keys: bool = False
 
 
-_NOT_PORTED = (
-    ("root_select", 0), ("deferred_emission", False), ("branch_width", 0),
-    ("expansion_limit", 0), ("root_arc_limit", 0), ("word_end_rank_lm", False),
-    ("lookahead_update", "arc"),
-)
+_NOT_PORTED = (("branch_width", 0), ("lookahead_update", "arc"))
 
 
 def _check_ported(cfg: BeamConfig) -> None:
@@ -325,11 +338,35 @@ class _Step:
         self.d2_cost = shaped(tree.dense2_cost, tree.dense2_dla)
         self.br_cost = shaped(tree.branch_cost, tree.branch_dla)
         self.root_cost = shaped(tree.root_cost, tree.root_dla)
-        # the unigram-potential undo at word ends is a per-state constant
-        # -la_coeff * (la[s] - la[root]), folded into the word-end costs
-        self.we_cost = tree.we_cost
+        G = tree.root_degree
+        self.gcap = min(cfg.root_arc_limit or G, G)
+        root_width = G + max(hroot - 1, 0) * self.gcap  # Wr
+        self.rsel = min(cfg.root_select, root_width) if cfg.root_select > 0 else 0  # R3
+        cand_width = 3 * cfg.max_hyps + kbranch * tree.branch_degree + (
+            0 if self.rsel else root_width
+        )
+        E = cfg.expansion_limit
+        self.elimit = E if 0 < E < cand_width and not cfg.deferred_emission else 0
+
+        # word-end columns [S+1, W]. The unigram-potential undo at word
+        # ends is a per-state constant -la_coeff * (la[s] - la[root]),
+        # folded into the word-end costs.
+        we_cost = tree.we_cost
         if use_la:
-            self.we_cost = tree.we_cost - la_coeff * (tree.la - tree.la[0])[:, None]
+            we_cost = tree.we_cost - la_coeff * (tree.la - tree.la[0])[:, None]
+        we = dict(word=tree.we_word, cost=we_cost, lemma=tree.we_lemma, next=tree.we_next)
+        self.rank_lm = cfg.word_end_rank_lm
+        if self.rank_lm:
+            # static unigram estimate per slot (the prepared dense final
+            # LM level); with W > 1 the slots are re-sorted by the biased
+            # rank so that slot 0 still bounds its state's slots
+            V = prep.uni_cost.shape[0] - 1
+            uni = prep.uni_cost[torch.clamp(tree.we_word, 0, V)]
+            we["bias"] = torch.where(tree.we_word >= 0, cfg.lm_scale * uni, 0.0)
+            if wmax > 1:
+                order = torch.sort(tree.we_cost + we["bias"], dim=1, stable=True).indices
+                we = {k: v.gather(1, order) for k, v in we.items()}
+        self.we = we
         self.br_ptr = tree.branch_ptr[:-1]
         self.slots = torch.arange(tree.branch_degree, device=tree.la.device)
         self.L = lm.num_states
@@ -353,6 +390,31 @@ class _Step:
         top = _stable_order(dscore, k)
         return order.gather(1, top), dscore.gather(1, top)
 
+    def _root_fanout(self, state, lms, score, bp):
+        """Root re-entry: the best root hypothesis expands all G root arcs,
+        the next H-1 only the first gcap (static promise order). Returns
+        the ``[B, Wr]`` pre-emission scores, destination states, their
+        emission classes, and the source LM states and backpointers."""
+        tree, H, gcap = self.tree, self.hroot, self.gcap
+        B, G = state.shape[0], tree.root_degree
+        root_sel = torch.where(state == 0, score, BIG)
+        hidx = _stable_order(root_sel, H)
+        h_score = root_sel.gather(1, hidx)  # ascending: h=0 is the best
+        h_lm, h_bp = lms.gather(1, hidx), bp.gather(1, hidx)
+        p_root = torch.cat([
+            h_score[:, :1] + self.root_cost,
+            (h_score[:, 1:, None] + self.root_cost[:gcap]).reshape(B, (H - 1) * gcap),
+        ], dim=1)
+
+        def fan(per_arc):  # [G] -> [B, Wr]
+            return torch.cat([per_arc, per_arc[:gcap].repeat(H - 1)]).expand(B, -1)
+
+        def per_hyp(h):  # [B, H] -> [B, Wr]
+            return torch.cat([h[:, :1].expand(B, G), h[:, 1:].repeat_interleave(gcap, dim=1)],
+                             dim=1)
+
+        return p_root, fan(tree.root_dst), fan(tree.root_cls), per_hyp(h_lm), per_hyp(h_bp)
+
     def __call__(self, c: Carry, emis_t: torch.Tensor, t: int,
                  n_frames: torch.Tensor, recs: Records) -> Carry:
         tree, cfg = self.tree, self.cfg
@@ -365,12 +427,13 @@ class _Step:
         def emis(cls):
             return emis_t.gather(1, cls)
 
-        # ---- expansion: loop, dense arcs
-        c_loop = score + tree.loop_cost[state] + emis(tree.emission_class[state])
+        # ---- expansion: loop, dense arcs (pre-emission path scores and
+        # the destination's emission class per candidate)
+        p_loop = score + tree.loop_cost[state]
         d1 = tree.dense1_dst[state]
-        c_d1 = score + self.d1_cost[state] + emis(tree.dense1_cls[state])
+        p_d1 = score + self.d1_cost[state]
         d2 = tree.dense2_dst[state]
-        c_d2 = score + self.d2_cost[state] + emis(tree.dense2_cls[state])
+        p_d2 = score + self.d2_cost[state]
 
         # ---- branch fan: top-Kb hyps at fan-out states, Db arcs each
         br_sel = torch.where(tree.branch_deg[state] > 0, score, BIG)
@@ -381,34 +444,55 @@ class _Step:
         ok = self.slots < tree.branch_deg[b_state][..., None]  # [B,Kb,Db]
         bi = torch.where(ok, self.br_ptr[b_state][..., None] + self.slots, 0)
         br_state = torch.where(ok, tree.branch_dst[bi], SENT).reshape(B, -1)
-        br_cost = torch.where(ok, self.br_cost[bi], BIG)
-        c_br = (b_score[..., None] + br_cost).reshape(B, -1) + emis(
-            torch.where(ok, tree.branch_cls[bi], 0).reshape(B, -1)
-        )
+        br_cls = torch.where(ok, tree.branch_cls[bi], 0).reshape(B, -1)
+        p_br = (b_score[..., None] + torch.where(ok, self.br_cost[bi], BIG)).reshape(B, -1)
         br_lm = lms.gather(1, bidx).repeat_interleave(Db, dim=1)
         br_bp = bp.gather(1, bidx).repeat_interleave(Db, dim=1)
 
-        # ---- root fan-out: the best H root hyps expand every root arc
-        H, G = self.hroot, tree.root_degree
-        root_sel = torch.where(state == 0, score, BIG)
-        hidx = _stable_order(root_sel, H)
-        h_score = root_sel.gather(1, hidx)  # ascending: h=0 is the best
-        emis_root = emis_t[:, tree.root_cls]  # [B,G]
-        c_root = (h_score[:, :, None] + self.root_cost) + emis_root[:, None, :]
-        root_state = tree.root_dst.expand(B, H, G).reshape(B, H * G)
-        root_lm = lms.gather(1, hidx).repeat_interleave(G, dim=1)
-        root_bp = bp.gather(1, hidx).repeat_interleave(G, dim=1)
-
-        cand_state = torch.cat([state, d1, d2, br_state, root_state], dim=1)
-        cand_lm = torch.cat([lms, lms, lms, br_lm, root_lm], dim=1)
-        cand_bp = torch.cat([bp, bp, bp, br_bp, root_bp], dim=1)
-        cand_score = torch.clamp(
-            torch.cat([c_loop, c_d1, c_d2, c_br, c_root.reshape(B, H * G)], dim=1),
-            max=BIG,
+        p_root, root_state, root_cls, root_lm, root_bp = self._root_fanout(state, lms, score, bp)
+        sections = [(state, lms, bp, p_loop, tree.emission_class[state]),
+                    (d1, lms, bp, p_d1, tree.dense1_cls[state]),
+                    (d2, lms, bp, p_d2, tree.dense2_cls[state]),
+                    (br_state, br_lm, br_bp, p_br, br_cls)]
+        if self.rsel:
+            # root select: pre-emission top-R3 over the root fan-out; the
+            # survivors skip the recombination and join the word ends
+            rs_idx = _stable_order(p_root, self.rsel)
+            rs_pre = torch.clamp(p_root.gather(1, rs_idx), max=BIG)
+            rs_state = root_state.gather(1, rs_idx)
+            rs_lm, rs_bp = root_lm.gather(1, rs_idx), root_bp.gather(1, rs_idx)
+            if cfg.deferred_emission:
+                rs_score = rs_pre
+            else:
+                rs_score = torch.where(
+                    rs_pre < BIG / 2, rs_pre + emis(root_cls.gather(1, rs_idx)), BIG
+                )
+        else:
+            sections.append((root_state, root_lm, root_bp, p_root, root_cls))
+        cand_state, cand_lm, cand_bp, cand_pre, cand_cls = (
+            torch.cat(cols, dim=1) for cols in zip(*sections)
         )
+        cand_pre = torch.clamp(cand_pre, max=BIG)
+        if cfg.deferred_emission:
+            # the survivors' emission is added at the word ends (it is a
+            # function of the destination state, part of the key)
+            cand_score = cand_pre
+        elif self.elimit:
+            # expansion limit: top-E by pre-emission score, then the
+            # emission for the E survivors only
+            eidx = _stable_order(cand_pre, self.elimit)
+            cand_state, cand_lm, cand_bp, cand_pre, cand_cls = (
+                x.gather(1, eidx) for x in (cand_state, cand_lm, cand_bp, cand_pre, cand_cls)
+            )
+            cand_score = torch.where(cand_pre < BIG / 2, cand_pre + emis(cand_cls), BIG)
+        else:
+            cand_score = torch.clamp(cand_pre + emis(cand_cls), max=BIG)
 
-        # ---- acoustic beam
+        # ---- acoustic beam (over the root-select survivors too)
         best = cand_score.min(dim=1, keepdim=True).values
+        if self.rsel:
+            best = torch.minimum(best, rs_score.min(dim=1, keepdim=True).values)
+            rs_score = torch.where(rs_score > best + cfg.beam, BIG, rs_score)
         cand_score = torch.where(cand_score > best + cfg.beam, BIG, cand_score)
 
         # ---- recombination + histogram top-K
@@ -419,43 +503,61 @@ class _Step:
         n_lm = cand_lm.gather(1, sel)
         n_bp = cand_bp.gather(1, sel)
 
-        # ---- word ends: pre-LM top-R (ties by slot index)
-        W = self.wmax
-        if W == 1:
-            pre = torch.where(
-                tree.we_word[n_state, 0] != WORD_NONE,
-                n_score + self.we_cost[n_state, 0], BIG,
+        # ---- word ends scan the beam plus the root-select survivors
+        if self.rsel:
+            rs_state = torch.where(rs_score >= BIG / 2, SENT, rs_state)
+            w_state = torch.cat([n_state, rs_state], dim=1)
+            w_lm = torch.cat([n_lm, rs_lm], dim=1)
+            w_score = torch.cat([n_score, rs_score], dim=1)
+            w_bp = torch.cat([n_bp, rs_bp], dim=1)
+        else:
+            w_state, w_lm, w_score, w_bp = n_state, n_lm, n_score, n_bp
+        if cfg.deferred_emission:
+            w_score = torch.where(
+                w_score < BIG / 2, w_score + emis(tree.emission_class[w_state]), BIG
             )
+
+        # ---- pre-LM top-R (ties by slot index)
+        W, we = self.wmax, self.we
+        if W == 1:
+            cost0 = we["cost"][:, 0] + we["bias"][:, 0] if self.rank_lm else we["cost"][:, 0]
+            pre = torch.where(we["word"][w_state, 0] != WORD_NONE,
+                              w_score + cost0[w_state], BIG)
             ridx = _stable_order(pre, R)
             r_pre = pre.gather(1, ridx)
-            r_src = n_state.gather(1, ridx)
+            r_src = w_state.gather(1, ridx)
             r_slot = torch.zeros_like(r_src)
-            r_srclm = n_lm.gather(1, ridx)
-            r_srcbp = n_bp.gather(1, ridx)
+            r_srclm = w_lm.gather(1, ridx)
+            r_srcbp = w_bp.gather(1, ridx)
         else:
-            # two-stage exact top-R: word-end slots are cost-sorted per
-            # state, so slot 0 bounds its state's other slots
-            pre0 = torch.where(
-                tree.we_word[n_state, 0] != WORD_NONE,
-                n_score + self.we_cost[n_state, 0], BIG,
-            )
+            # two-stage exact top-R: word-end slots are sorted per state
+            # by the selection rank, so slot 0 bounds its state's slots
+            def ranked(base, *idx):
+                pre = base + we["cost"][idx]
+                return pre + we["bias"][idx] if self.rank_lm else pre
+
+            pre0 = torch.where(we["word"][w_state, 0] != WORD_NONE,
+                               ranked(w_score, w_state, 0), BIG)
             Rh = min(R, pre0.shape[1])
             hsel = _stable_order(pre0, Rh)
-            s_r = n_state.gather(1, hsel)
+            s_r = w_state.gather(1, hsel)
             pre = torch.where(
-                tree.we_word[s_r] != WORD_NONE,
-                n_score.gather(1, hsel)[..., None] + self.we_cost[s_r], BIG,
+                we["word"][s_r] != WORD_NONE,
+                ranked(w_score.gather(1, hsel)[..., None], s_r), BIG,
             ).reshape(B, Rh * W)
             ridx = _stable_order(pre, R)
             r_pre = pre.gather(1, ridx)
             hr = torch.div(ridx, W, rounding_mode="floor")
             r_slot = ridx % W
             r_src = s_r.gather(1, hr)
-            r_srclm = n_lm.gather(1, hsel.gather(1, hr))
-            r_srcbp = n_bp.gather(1, hsel.gather(1, hr))
-        r_word = tree.we_word[r_src, r_slot]
-        r_lemma = tree.we_lemma[r_src, r_slot]
-        r_next = tree.we_next[r_src, r_slot]
+            r_srclm = w_lm.gather(1, hsel.gather(1, hr))
+            r_srcbp = w_bp.gather(1, hsel.gather(1, hr))
+        r_word = we["word"][r_src, r_slot]
+        r_lemma = we["lemma"][r_src, r_slot]
+        r_next = we["next"][r_src, r_slot]
+        if self.rank_lm:
+            # undo the selection bias: the exact LM cost replaces it
+            r_pre = torch.where(r_pre < BIG / 2, r_pre - we["bias"][r_src, r_slot], r_pre)
 
         is_lm_word = r_word >= 0
         lm_cost, lm_next = lookup_prepared(
@@ -473,15 +575,15 @@ class _Step:
         re_state = torch.where(r_valid, r_next, SENT)
         re_score = torch.where(r_valid, r_score, BIG)
 
-        # ---- merge the word-end re-entries into the beam
-        m_score = torch.cat([n_score, re_score], dim=1)
+        # ---- merge the word-end re-entries (and root-select survivors)
+        m_score = torch.cat([w_score, re_score], dim=1)
         midx = _stable_order(m_score, K)
         f_score = m_score.gather(1, midx)
         f_state = torch.where(
-            f_score >= BIG / 2, SENT, torch.cat([n_state, re_state], dim=1).gather(1, midx)
+            f_score >= BIG / 2, SENT, torch.cat([w_state, re_state], dim=1).gather(1, midx)
         )
-        f_lm = torch.cat([n_lm, r_newlm], dim=1).gather(1, midx)
-        f_bp = torch.cat([n_bp, rec_id], dim=1).gather(1, midx)
+        f_lm = torch.cat([w_lm, r_newlm], dim=1).gather(1, midx)
+        f_bp = torch.cat([w_bp, rec_id], dim=1).gather(1, midx)
 
         # ---- freeze finished utterances, capture finals at their last frame
         state = torch.where(active, f_state, state)

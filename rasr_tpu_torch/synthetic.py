@@ -7,8 +7,9 @@ pronunciations over ``num_phones`` phones, a hashed pseudo-CART tying to
 diagonal GMMs of ``densities`` densities each over ``feat_dim``-dim
 features, and a random LDA from 9 spliced 16-dim MFCC frames. At the
 defaults that is the benchmark's shape: 5k words, 40 phones, 2000 x 8 x
-45 GMMs, LDA 144 -> 45. The decoder gets decoder slice A's beam
-(K=1024, R=64, 16 root hypotheses, 146 branch hypotheses, lm_scale 10).
+45 GMMs, LDA 144 -> 45. The decoder gets ``bench.py``'s production beam,
+:data:`PRODUCTION_BEAM`; :data:`SLICE_A_BEAM` is the same beam without the
+slice-B pruning (root select, deferred emission, root-arc cap).
 """
 
 from __future__ import annotations
@@ -44,6 +45,31 @@ class HashTying(StateTying):
         return 1 + (h % (self.num_classes - 1))
 
 
+#: bench.py's decoder config at its environment defaults (bench.py:224-275);
+#: its auto ``branch_width`` rule gives 0 (the dense fan) on this network
+PRODUCTION_BEAM = BeamConfig(
+    max_hyps=1024, beam=1e9, word_end_limit=64, root_hyps=16, branch_hyps=146,
+    root_arc_limit=160, expansion_limit=0, root_select=512, deferred_emission=True,
+    lm_scale=10.0,
+)
+#: the production beam without slice B: every root arc of the 16 root
+#: hypotheses rides the main recombination, emission added per candidate
+SLICE_A_BEAM = BeamConfig(
+    max_hyps=1024, beam=1e9, word_end_limit=64, root_hyps=16, branch_hyps=146, lm_scale=10.0,
+)
+
+
+def auto_branch_width(tree: PrefixTree, beam: BeamConfig) -> int:
+    """bench.py's automatic ``branch_width`` (bench.py:218-223): 0 (the
+    dense fan) while ``branch_hyps`` x the largest overflow degree fits the
+    sort budget ``4096 - 3K``, else that budget in compact slots."""
+    deg = tree.arc_ptr[1:] - tree.arc_ptr[:-1]
+    db_est = int(max(int((deg[1:] - 2).max()), 1)) if deg.size > 1 else 1
+    budget = max(4096 - 3 * beam.max_hyps, 256) - 2
+    kb = beam.branch_hyps or beam.max_hyps
+    return 0 if kb * db_est <= budget + 2 else budget
+
+
 class Setup(NamedTuple):
     frontend: FeatureFrontend
     scorer: GmmFeatureScorer
@@ -65,10 +91,7 @@ def build_setup(
     feat_dim: int = 45,
     seed: int = 0,
     device="cpu",
-    beam: BeamConfig = BeamConfig(
-        max_hyps=1024, beam=1e9, word_end_limit=64, root_hyps=16,
-        branch_hyps=146, lm_scale=10.0,
-    ),
+    beam: BeamConfig = PRODUCTION_BEAM,
 ) -> Setup:
     rng = np.random.default_rng(seed)
     lex = Lexicon()
@@ -105,6 +128,11 @@ def build_setup(
         lex, tying, topology, TransitionModel(), lm_vocab=vocab,
         lm_unigrams=unigrams, skip_scope="phone",
     )
+    if auto_branch_width(tree, beam):
+        raise NotImplementedError(
+            f"bench.py's rule asks for {auto_branch_width(tree, beam)} compact branch slots "
+            "on this network: branch_width is not ported yet"
+        )
     ms = MixtureSet(
         means=rng.normal(size=(num_classes, densities, feat_dim)).astype(np.float32),
         variances=(0.5 + rng.uniform(size=(num_classes, densities, feat_dim))).astype(np.float32),

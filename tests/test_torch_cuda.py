@@ -10,6 +10,8 @@ The unmarked tests check what holds without a card: the smoke script
 and ``cuda_device`` refuse to carry on on the CPU.
 """
 
+import dataclasses
+import re
 import shutil
 import subprocess
 import sys
@@ -32,6 +34,11 @@ from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain  # noqa:
 from rasr_tpu_torch.ops.kernels.mfcc import (  # noqa: E402
     folded_bases, mfcc_frames, mfcc_frames_plain,
 )
+from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain  # noqa: E402
+from rasr_tpu_torch.ops.kernels.wordend import (  # noqa: E402
+    WORD_NONE, wordend_block, wordend_block_plain,
+)
+from rasr_tpu_torch.examples import gather_microbench, wordend_microbench  # noqa: E402
 from rasr_tpu_torch.search.decoder import BeamConfig  # noqa: E402
 from rasr_tpu_torch.synthetic import build_setup  # noqa: E402
 
@@ -110,9 +117,69 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.cuda
-def test_slice_on_card_equals_cpu(card):
+@pytest.mark.parametrize("shape", [
+    wordend_microbench.SHAPE,
+    dict(B=3, KW=1000, S1=5003, C=1999, C_sp=12),  # ragged KW and C
+    dict(B=5, KW=7, S1=11, C=3, C_sp=5),  # fewer slots than a block has threads
+    dict(B=2, KW=300, S1=64, C=9, C_sp=0),  # no state-pack columns
+])
+def test_wordend_kernel_matches_plain(card, shape):
+    """Bit-equal: two fp32 adds in the same order, no multiply to contract."""
+    w_state, w_score, combo, emis = wordend_microbench.make_inputs(**shape)
+    combo[w_state[0, 0], 0] = WORD_NONE
+    args = [torch.from_numpy(x).to(card) for x in (w_state, w_score, combo, emis)]
+    before = wordend_block.launches
+    got = wordend_block(*args, shape["C_sp"])
+    torch.cuda.synchronize()
+    assert wordend_block.launches == before + 1
+    want = wordend_block_plain(*args, shape["C_sp"])
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    assert got[0][0, 0].item() == float(np.float32(1e30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,N", [(56432, 16, 65536), (1000, 5, 777), (300, 8, 1), (50, 4, 0)])
+def test_row_gather_kernel_matches_plain(card, S, C, N):
+    """The int4 path (C % 4 == 0), the scalar path, and an empty gather."""
+    table, idx = (torch.from_numpy(x).to(card)
+                  for x in gather_microbench.make_inputs(S, C, N, seed=C))
+    before = row_gather.launches
+    got = row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + (1 if N else 0)
+    assert torch.equal(got, row_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    w_state, w_score, combo, emis = (
+        torch.from_numpy(x).to(card) for x in wordend_microbench.make_inputs(2, 8, 20, 12, 4))
+    with pytest.raises(TypeError):
+        wordend_block(w_state.long(), w_score, combo, emis, 4)
+    with pytest.raises(ValueError):
+        wordend_block(w_state, w_score.cpu(), combo, emis, 4)
+    with pytest.raises(ValueError):
+        wordend_block(w_state, w_score, combo, emis, 17)
+    table, idx = (torch.from_numpy(x).to(card) for x in gather_microbench.make_inputs(10, 4, 6))
+    with pytest.raises(TypeError):
+        row_gather(table.float(), idx)
+    with pytest.raises(ValueError):
+        row_gather(table, idx.cpu())
+    with pytest.raises(ValueError):
+        row_gather(table.T, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slice_b", [False, True])
+def test_slice_on_card_equals_cpu(card, slice_b):
+    """Slice A's pruning, and slice B's: root select, deferred emission
+    and the root-arc cap at a scaled-down production beam."""
     beam = BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=4, branch_hyps=16,
                       lm_scale=10.0)
+    if slice_b:
+        beam = dataclasses.replace(beam, root_arc_limit=12, root_select=48,
+                                   deferred_emission=True)
     kw = dict(num_words=80, num_phones=12, num_classes=150, densities=4, beam=beam)
     on_card, on_cpu = build_setup(device=card, **kw), build_setup(**kw)
     x = torch.from_numpy((np.random.default_rng(3).normal(size=(3, 12000)) * 0.1)
@@ -152,4 +219,16 @@ def test_cuda_device_and_build_errors():
     _build.check(0, "gmm_scores")
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path == _build.library_path()
-    assert {s.name for s in _build._sources()} == {"gmm_fused.cu", "mfcc_fused.cu"}
+    assert {s.name for s in _build._sources()} == {
+        "gmm_fused.cu", "mfcc_fused.cu", "row_gather.cu", "wordend_fused.cu"}
+
+
+def test_entry_points_match_the_c_sources():
+    """Every ctypes entry point is an ``extern "C"`` function of csrc/ with
+    as many parameters as its argtypes (a missing argtype would pass a
+    pointer as a 32-bit int)."""
+    found = {}
+    for src in _build._sources():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len(params.split(","))
+    assert found == {name: len(types) for name, types in _build.ENTRY_POINTS.items()}

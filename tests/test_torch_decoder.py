@@ -1,9 +1,12 @@
-"""PyTorch port vs JAX: the frame-synchronous tree decoder (slice A).
+"""PyTorch port vs JAX: the frame-synchronous tree decoder (slices A and B).
 
-Gates: pruning off, the port's best score equals an exhaustive search;
-with K, H, Kb and R set to bind, the port equals the JAX decoder (same
-words, scores within 1e-4 relative) on tie-free random emissions; the
-planted two-word canary; ragged batches equal per-utterance decodes.
+Gates: pruning off, the port's best score equals an exhaustive search
+(also under root_select and deferred_emission); with K, H, Kb and R set
+to bind, and under each slice-B pruning option, the port equals the JAX
+decoder (same words, records and final beams; scores within 1e-4
+relative, LM costs exact) on tie-free random emissions; the planted
+two-word canary under both of bench.py's canary configs; ragged batches
+equal per-utterance decodes.
 """
 
 import dataclasses
@@ -27,7 +30,7 @@ from rasr_tpu.search import decoder as jdec
 from rasr_tpu.search.tree import build_prefix_tree as jax_build_prefix_tree
 from rasr_tpu_torch import convert
 from rasr_tpu_torch.models.lm.ngram import compile_ngram
-from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder, tree_to_device
+from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder, _Step, tree_to_device
 from rasr_tpu_torch.search.tree import build_prefix_tree
 from rasr_tpu_torch.synthetic import HashTying
 
@@ -141,12 +144,12 @@ BINDING = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(BINDING))
-def test_matches_jax_with_binding_limits(rich_setup, name):
-    lex, tying, lm, jtree, ttree = rich_setup
-    kw = BINDING[name]
-    rng = np.random.default_rng(sorted(BINDING).index(name))
-    emis = rng.uniform(0.0, 6.0, size=(3, 14, tying.num_classes)).astype(np.float32)
+def _assert_port_equals_jax(jtree, ttree, lm, num_classes, kw, seed):
+    """Decode the same tie-free random emissions with the JAX decoder and
+    the port under ``kw``: same words, word ends, record chains and scores,
+    the same R records in every frame and the same final beams."""
+    rng = np.random.default_rng(seed)
+    emis = rng.uniform(0.0, 6.0, size=(3, 14, num_classes)).astype(np.float32)
     n = np.array([14, 11, 9])
     jax_decoder = jdec.TreeDecoder(jtree, jax_compile_ngram(lm), jdec.BeamConfig(**kw))
     want = jax_decoder.decode_scores(emis, n)
@@ -166,7 +169,7 @@ def test_matches_jax_with_binding_limits(rich_setup, name):
     np.testing.assert_array_equal(recs.word.numpy(), word)
     np.testing.assert_array_equal(recs.lm.numpy(), lm_state)
     np.testing.assert_allclose(recs.score.numpy(), score, rtol=1e-4)
-    np.testing.assert_allclose(recs.lmcost.numpy(), lmcost, rtol=1e-5)
+    np.testing.assert_array_equal(recs.lmcost.numpy(), lmcost)
     # and each utterance's whole final beam, with its </s> costs
     fstate, flm, fscore, fbp, end_cost = jax_decoder._last_finals
     fin = handle.finals
@@ -178,6 +181,118 @@ def test_matches_jax_with_binding_limits(rich_setup, name):
         assert beam(fin.fstate[b].numpy(), fin.flm[b].numpy(), fin.fscore[b].numpy(),
                     fin.fbp[b].numpy(), handle.end_cost[b].numpy()) == beam(
             fstate[b], flm[b], fscore[b], fbp[b], end_cost[b])
+
+
+@pytest.mark.parametrize("name", sorted(BINDING))
+def test_matches_jax_with_binding_limits(rich_setup, name):
+    lex, tying, lm, jtree, ttree = rich_setup
+    _assert_port_equals_jax(jtree, ttree, lm, tying.num_classes, BINDING[name],
+                            sorted(BINDING).index(name))
+
+
+def _slice_b_system(homophones):
+    """rich_setup's network under an LM whose unigram costs all differ:
+    every root arc and every sibling arc then has its own lookahead-shaped
+    cost, so the pre-emission scores that root_select, deferred_emission
+    and expansion_limit rank are tie-free (the reference's root-select
+    sort is unstable)."""
+    lex = Lexicon()
+    build_default_silence(lex)
+    words = [("AB", "a b", 0.0), ("BA", "b a", 0.0), ("AA", "a a", 0.0), ("BAC", "b a c", 0.0),
+             ("ABC", "a b c", 0.0), ("CA", "c a", 0.0)]
+    if homophones:
+        words.append(("AB2", "a b", -0.3))  # cheaper pronunciation, rarer word
+    for orth, pron, score in words:
+        lex.add_lemma([orth], [(pron.split(), score)])
+    topo = HmmTopology(states_per_phone=3, silence_states=1)
+    tying = HashTying(20011)
+    trans = TransitionModel()
+    sents = ([["AB", "BA", "CA"], ["ABC", "AA"], ["BAC", "BA"], ["CA", "AB"]]
+             + [["AB"]] * 5 + [["BA"]] * 3 + [["CA"]] + [["AA"]] * 7 + [["ABC"]] * 3
+             + [["BAC"]] + ([["AB2"]] if homophones else []))
+    lm = NgramLm.train_from_text(sents, order=3)
+    uni = {w: lm.score((), w) for w in lm.vocab.values()}
+    assert len(set(uni.values())) == len(uni)
+    kw = dict(lm_vocab=lm.vocab, lm_unigrams=uni)
+    jtree = jax_build_prefix_tree(lex, tying, topo, trans, **kw)
+    ttree = build_prefix_tree(lex, tying, topo, trans, **kw)
+    assert ttree.max_word_ends == (2 if homophones else 1)
+    return tying, lm, jtree, ttree
+
+
+@pytest.fixture(scope="module")
+def slice_b_systems():
+    return {h: _slice_b_system(h) for h in (False, True)}
+
+
+SLICE_B = {
+    # name: (homophones, BeamConfig fields); K, H, Kb, R bind throughout.
+    # beam=2.0 binds on the root-select survivors, which often hold the
+    # frame's best score.
+    "root-select": (True, dict(max_hyps=10, word_end_limit=4, root_hyps=3, branch_hyps=3,
+                               root_select=4, lm_scale=0.7, beam=2.0)),
+    "root-select-deferred": (True, dict(max_hyps=10, word_end_limit=4, root_hyps=3,
+                                        branch_hyps=3, root_select=4, lm_scale=0.7,
+                                        deferred_emission=True)),
+    # bench.py's canary config (bench.py:334-336)
+    "bench-canary-config": (True, dict(max_hyps=64, word_end_limit=16, lm_scale=0.5,
+                                       root_hyps=4, root_select=8, root_arc_limit=2,
+                                       branch_hyps=16, deferred_emission=True)),
+    "expansion-limit": (True, dict(max_hyps=8, word_end_limit=4, root_hyps=3, branch_hyps=2,
+                                   expansion_limit=14, lm_scale=0.7)),
+    "rank-lm-one-slot": (False, dict(max_hyps=8, word_end_limit=2, root_hyps=3,
+                                     word_end_rank_lm=True, lm_scale=0.9)),
+    "rank-lm-homophones": (True, dict(max_hyps=8, word_end_limit=1, root_hyps=3,
+                                      word_end_rank_lm=True, lm_scale=2.0)),
+    "root-arc-limit": (True, dict(max_hyps=12, word_end_limit=4, root_hyps=3, root_arc_limit=2,
+                                  lm_scale=0.7)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_B))
+def test_matches_jax_slice_b(slice_b_systems, monkeypatch, name):
+    homophones, kw = SLICE_B[name]
+    tying, lm, jtree, ttree = slice_b_systems[homophones]
+    # the emission draw: for the homophone ranking, one in which the
+    # biased slot re-sort changes which records are selected
+    seed = 104 if name == "rank-lm-homophones" else 100 + sorted(SLICE_B).index(name)
+    # the root fan-out's live pre-emission scores must be distinct in
+    # every frame, or the reference's unstable root-select sort may pick
+    # another survivor than the port's stable one
+    fanouts = []
+    fanout = _Step._root_fanout
+
+    def spy(self, *args):
+        out = fanout(self, *args)
+        fanouts.append(out[0])
+        return out
+
+    monkeypatch.setattr(_Step, "_root_fanout", spy)
+    _assert_port_equals_jax(jtree, ttree, lm, tying.num_classes, kw, seed)
+    assert fanouts
+    for p_root in fanouts:
+        for row in p_root.numpy():
+            live = row[row < 1e29]
+            assert len(np.unique(live)) == len(live)
+
+
+@pytest.mark.parametrize("option", [
+    dict(root_select=4096), dict(deferred_emission=True),
+    dict(deferred_emission=True, root_select=4096),
+])
+def test_slice_b_pruning_off_equals_exhaustive_oracle(oracle_setup, rng, option):
+    """root_select (R3 covering the fan-out) and deferred_emission stay
+    exact with pruning off (tests/test_decoder.py:385-456)."""
+    lex, topo, tying, trans, lm, tree = oracle_setup
+    M, T, lm_scale = tying.num_classes, 7, 0.7
+    dec = TreeDecoder(tree, compile_ngram(lm), BeamConfig(
+        max_hyps=256, beam=1e9, word_end_limit=64, root_hyps=256, lm_scale=lm_scale, **option))
+    for _ in range(2):
+        emis = rng.uniform(0.0, 6.0, size=(1, T, M)).astype(np.float32)
+        (res,) = dec.decode_scores(emis, np.array([T]))
+        score, seq = _oracle_best(lex, topo, tying, trans, lm, emis, T, lm_scale)
+        np.testing.assert_allclose(res.score, score, rtol=1e-4, atol=1e-3)
+        assert [l.primary_orth for l in res.lemmas] == list(seq)
 
 
 def test_planted_canary():
@@ -204,6 +319,33 @@ def test_planted_canary():
     assert [l.primary_orth for l in res.lemmas] == ["[SILENCE]", "AB"]
     assert res.word_ends == [1, 5]
     assert res.orth == "AB"
+
+
+def test_planted_canary_slice_b():
+    """The same plant under bench.py's second canary config: root select,
+    deferred emission and the branch / root caps (bench.py:334-336)."""
+    lex = Lexicon()
+    build_default_silence(lex)
+    lex.add_lemma(["AB"], [(["a", "b"], 0.0)])
+    lex.add_lemma(["BA"], [(["b", "a"], 0.0)])
+    topo = HmmTopology(states_per_phone=1, silence_states=1)
+    tying = MonophoneStateTying(lex, topo)
+    lm = NgramLm.train_from_text([["AB", "BA"], ["BA", "AB"]], order=2)
+    tree = build_prefix_tree(lex, tying, topo, TransitionModel(), lm_vocab=lm.vocab)
+
+    def cls_of(sym):
+        return tying.classify(AllophoneState(Allophone(lex.phonemes[sym].id), 0))
+
+    seq = [cls_of("si")] * 2 + [cls_of("a")] * 2 + [cls_of("b")] * 2
+    emis = np.full((1, len(seq), tying.num_classes), 50.0, np.float32)
+    for t, c in enumerate(seq):
+        emis[0, t, c] = 0.0
+    dec = TreeDecoder(tree, compile_ngram(lm), BeamConfig(
+        max_hyps=64, word_end_limit=16, lm_scale=0.5, root_hyps=4, root_select=8,
+        root_arc_limit=2, branch_hyps=16, deferred_emission=True))
+    (res,) = dec.decode_scores(torch.from_numpy(emis), np.array([len(seq)]))
+    assert [l.primary_orth for l in res.lemmas] == ["[SILENCE]", "AB"]
+    assert res.word_ends == [1, 5]
 
 
 def test_batched_ragged_equals_single(rich_setup, rng):
@@ -256,11 +398,7 @@ def test_tree_tables_convert_from_jax(rich_setup, rng):
     assert a.decode_scores(emis, [8])[0].words == b.decode_scores(emis, [8])[0].words
 
 
-@pytest.mark.parametrize("option", [
-    dict(root_select=8), dict(deferred_emission=True), dict(branch_width=16),
-    dict(expansion_limit=64), dict(root_arc_limit=4), dict(word_end_rank_lm=True),
-    dict(lookahead_update="survivor"),
-])
+@pytest.mark.parametrize("option", [dict(branch_width=16), dict(lookahead_update="survivor")])
 def test_unported_beam_options_raise(oracle_setup, option):
     *_, lm, tree = oracle_setup
     with pytest.raises(NotImplementedError):

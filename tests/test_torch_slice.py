@@ -4,7 +4,9 @@ One small synthetic setup (``rasr_tpu_torch.synthetic``, the benchmark's
 generator at a few dozen words) drives the JAX pipeline (frontend ->
 GMM scorer -> tree decoder) and two port pipelines: one whose state is
 carried across from the JAX objects by ``convert.py``, and one built
-natively by the port. All three must recognise the same words.
+natively by the port. All three must recognise the same words: under
+decoder slice A's plain pruning, and under bench.py's production pruning
+(root select, deferred emission, root-arc cap) scaled down.
 """
 
 import dataclasses
@@ -25,14 +27,16 @@ from rasr_tpu.search.tree import build_prefix_tree as jax_build_prefix_tree
 from rasr_tpu_torch import convert
 from rasr_tpu_torch.models.scorer import GmmFeatureScorer
 from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig
-from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
-from rasr_tpu_torch.synthetic import build_setup
+from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder, _Step
+from rasr_tpu_torch.synthetic import PRODUCTION_BEAM, auto_branch_width, build_setup
 
 BEAM = dict(max_hyps=64, word_end_limit=16, root_hyps=4, branch_hyps=16, lm_scale=10.0)
+# the production beam's slice-B options at this size: R3 and the root-arc
+# cap both bind (the network has ~60 root arcs)
+BEAM_B = dict(BEAM, root_arc_limit=10, root_select=24, deferred_emission=True)
 
 
-@pytest.fixture(scope="module")
-def pipelines():
+def _pipelines(BEAM):
     s = build_setup(num_words=60, num_phones=12, num_classes=120, densities=4,
                     beam=BeamConfig(**BEAM))
     lm = s.lm
@@ -60,7 +64,12 @@ def pipelines():
     return jax_side, carried, native
 
 
-def test_audio_to_words_port_equals_jax(pipelines):
+@pytest.fixture(scope="module")
+def pipelines():
+    return _pipelines(BEAM)
+
+
+def _assert_audio_to_words_equal(pipelines):
     jax_side, carried, native = pipelines
     rng = np.random.default_rng(7)
     lengths = np.array([16000, 11200, 7300])
@@ -78,3 +87,47 @@ def test_audio_to_words_port_equals_jax(pipelines):
             assert a.words == b.words
             assert a.word_ends == b.word_ends
             np.testing.assert_allclose(a.score, b.score, rtol=1e-4)
+
+
+def test_audio_to_words_port_equals_jax(pipelines):
+    _assert_audio_to_words_equal(pipelines)
+
+
+def test_audio_to_words_slice_b_port_equals_jax(monkeypatch):
+    pipes = _pipelines(BEAM_B)
+    assert pipes[2][2].tables.root_degree > BEAM_B["root_arc_limit"]
+    fanouts = []
+    fanout = _Step._root_fanout
+
+    def spy(self, *args):
+        out = fanout(self, *args)
+        fanouts.append(out[0])
+        return out
+
+    monkeypatch.setattr(_Step, "_root_fanout", spy)
+    _assert_audio_to_words_equal(pipes)
+    # the reference's root-select sort is unstable: its live pre-scores
+    # must be tie-free for the two to pick the same survivors
+    assert fanouts and fanouts[0].shape[1] > BEAM_B["root_select"]
+    for p_root in fanouts:
+        for row in p_root.numpy():
+            live = row[row < 1e29]
+            assert len(np.unique(live)) == len(live)
+
+
+def test_build_setup_applies_bench_branch_width_rule():
+    """bench.py's auto rule (bench.py:218-223): the dense branch fan while
+    Kb x the largest overflow degree fits 4096 - 3K, else compact slots,
+    which the port does not run yet and so refuses."""
+    kw = dict(num_words=60, num_phones=12, num_classes=120, densities=4)
+    s = build_setup(**kw)
+    assert s.beam == PRODUCTION_BEAM and s.decoder.cfg.root_select == 512
+    deg = s.tree.arc_ptr[1:] - s.tree.arc_ptr[:-1]
+    db = max(int((deg[1:] - 2).max()), 1)
+    assert auto_branch_width(s.tree, PRODUCTION_BEAM) == 0
+    # a budget of 254 slots, which 300 hypotheses' fans overflow
+    wide = dataclasses.replace(PRODUCTION_BEAM, max_hyps=1400, branch_hyps=300)
+    assert 300 * db > 256
+    assert auto_branch_width(s.tree, wide) == 254
+    with pytest.raises(NotImplementedError):
+        build_setup(**kw, beam=wide)
