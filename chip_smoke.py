@@ -48,6 +48,23 @@ DECODE_RTOL = 1e-2
 BATCH, AUDIO_S, TIMED_BATCHES = 64, 10.0, 2
 SLICE_A_BATCH = 16  # slice A at reduced depth: one timed batch
 
+# NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
+# cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
+# operations and its bytes (each input read once, each output written
+# once) over these. The GMM and MFCC kernels take their products on the
+# tensor cores as three TF32 products each (3xTF32, fp32 accuracy), so
+# those products count three times at the TF32 rate.
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+
+
+def bound(flop: float, nbytes: float, tf32x3_flop: float = 0.0):
+    """(bound_ms, bound_by) of work of ``flop`` fp32 operations on the fp32
+    pipes and ``tf32x3_flop`` fp32-accurate operations on the tensor cores
+    (the two units run side by side), moving ``nbytes``."""
+    t_op = max(flop / FP32_FLOPS, 3.0 * tf32x3_flop / TF32_FLOPS) * 1e3
+    t_mem = nbytes / HBM_BYTES_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
 
 def card_tag() -> str:
     out = subprocess.run(
@@ -91,16 +108,22 @@ def main() -> int:
     import numpy as np
 
     from rasr_tpu_torch import _build
-    from rasr_tpu_torch.device import cuda_device, cuda_ms
+    from rasr_tpu_torch.device import cuda_device, cuda_graph_ms, cuda_ms
+    from rasr_tpu_torch.corpus.lexicon import Lexicon, build_default_silence
     from rasr_tpu_torch.examples import gather_microbench, wordend_microbench
-    from rasr_tpu_torch.host import (
-        Allophone, AllophoneState, HmmTopology, Lexicon, MonophoneStateTying,
-        NgramLm, TransitionModel, build_default_silence,
-    )
+    from rasr_tpu_torch.models.allophone import Allophone, AllophoneState
+    from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
+    from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
+    from rasr_tpu_torch.models.lm.arpa import NgramLm
     from rasr_tpu_torch.models.lm.ngram import compile_ngram
-    from rasr_tpu_torch.ops.frontend import FrontendConfig, frame_signal, num_frames, preemphasize
+    from rasr_tpu_torch.models.tying import MonophoneStateTying
+    from rasr_tpu_torch.ops.frontend import (
+        FrontendConfig, frame_signal, make_params, num_frames, preemphasize,
+    )
     from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain
-    from rasr_tpu_torch.ops.kernels.mfcc import folded_bases, mfcc_frames, mfcc_frames_plain
+    from rasr_tpu_torch.ops.kernels.mfcc import (
+        folded_bases, mfcc_frames, mfcc_frames_plain, pack_basis,
+    )
     from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain
     from rasr_tpu_torch.ops.kernels.wordend import WORD_NONE, wordend_block, wordend_block_plain
     from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
@@ -131,9 +154,9 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     say(f"kernel build {time.time() - t0:.2f} s (one nvcc per source, in parallel)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line:  # ptxas: per-kernel registers / shared memory
-            sys.stderr.write(line.strip() + "\n")
+    for line in _build.build_log.splitlines():  # ptxas: registers, spills, shared memory
+        if any(k in line for k in ("Compiling entry", "spill", "registers")):
+            say("ptxas " + line.split(":", 1)[-1].strip())
 
     # ------------------------------------------------------------ setup
     t0 = time.time()
@@ -150,40 +173,93 @@ def main() -> int:
     # ------------------------------------------- kernel phase: GMM scoring
     st = s.scorer.tensors
     feats = torch.from_numpy(rng.normal(size=(N, st.dim)).astype(np.float32)).to(dev)
+    def ragged_case(N_, M_, K_, D_):
+        """Frames and mixtures off their tiles, K_ with padding densities."""
+        ms = MixtureSet(
+            means=rng.normal(size=(M_, K_, D_)).astype(np.float32),
+            variances=(0.5 + rng.uniform(size=(M_, K_, D_))).astype(np.float32),
+            weights=np.full((M_, K_), 1.0 / K_, np.float32),
+            num_densities=rng.integers(1, K_ + 1, size=M_).astype(np.int32),
+        )
+        ms.weights[ms.density_mask == 0] = 0.0
+        x_ = torch.from_numpy(rng.normal(size=(N_, D_)).astype(np.float32)).to(dev)
+        return x_, make_scoring_tensors(ms, device=dev)
+
     gmm_err = 0.0
-    for max_approx in (True, False):
-        before = gmm_scores.launches
-        got = gmm_scores(feats[:4096], st, max_approx)
-        torch.cuda.synchronize()
-        if gmm_scores.launches <= before:
-            raise AssertionError("gmm_scores did not launch its kernel")
-        ref = gmm_scores_plain(feats[:4096], st, max_approx)
-        gmm_err = max(gmm_err, check_close(f"gmm max_approx={max_approx}", got, ref,
-                                           GMM_RTOL, GMM_ATOL))
+    # the main path's N (one mixture-tile group per frame block), a slice of
+    # it (nine groups: the launcher splits the mixtures when N is small),
+    # ragged at D = 39, and D = 96 (too deep for a resident frame tile: the
+    # frames stream through the ring with the operand)
+    for x_, st_ in ((feats, st), (feats[:4096], st), ragged_case(4097, 1999, 3, 39),
+                    ragged_case(1000, 300, 2, 96)):
+        for max_approx in (True, False):
+            before = gmm_scores.launches
+            got = gmm_scores(x_, st_, max_approx)
+            torch.cuda.synchronize()
+            if gmm_scores.launches <= before:
+                raise AssertionError("gmm_scores did not launch its kernel")
+            ref = gmm_scores_plain(x_, st_, max_approx)
+            gmm_err = max(gmm_err, check_close(
+                f"gmm N={x_.shape[0]} M={st_.num_mixtures} K={st_.max_densities} "
+                f"D={st_.dim} max_approx={max_approx}", got, ref, GMM_RTOL, GMM_ATOL))
+    del got, ref, x_, st_
     gmm_ms = cuda_ms(lambda: gmm_scores(feats, st, True), 5)
     gmm_plain_ms = cuda_ms(lambda: gmm_scores_plain(feats, st, True), 5)
-    say(f"gmm_scores N={N} M={st.num_mixtures} K={st.max_densities} D={st.dim}: "
-        f"kernel {gmm_ms:.3f} ms, plain {gmm_plain_ms:.3f} ms, max abs err {gmm_err:.3e}")
+    xx, ab = torch.cat([feats * feats, feats], 1), torch.cat([st.a, st.b], 0)
+    gmm_lib_ms = cuda_ms(lambda: torch.matmul(xx, ab), 3)  # the bare density product
+    del xx, ab
+    M_, K_, D_ = st.num_mixtures, st.max_densities, st.dim
+    gmm_flop, gmm_bytes = 4.0 * N * D_ * M_ * K_, 4.0 * (N * D_ + (2 * D_ + 1) * M_ * K_ + N * M_)
+    gmm_bound = bound(0.0, gmm_bytes, gmm_flop)
+    say(f"gmm_scores N={N} M={M_} K={K_} D={D_}: kernel {gmm_ms:.3f} ms, plain "
+        f"{gmm_plain_ms:.3f} ms, matmul([x^2|x], [a;b]) {gmm_lib_ms:.3f} ms, bound "
+        f"{gmm_bound[0]:.3f} ms ({gmm_bound[1]}, 3xTF32; on the fp32 pipes "
+        f"{bound(gmm_flop, gmm_bytes)[0]:.3f} ms), max abs err {gmm_err:.3e}")
     del feats
 
     # ------------------------------------------------ kernel phase: MFCC
     p = s.frontend.params
     cosw, sinw = folded_bases(p)
     frames = frame_signal(preemphasize(samples, cfg.preemphasis), T, cfg)
-    before = mfcc_frames.launches
-    got = mfcc_frames(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor)
-    torch.cuda.synchronize()
-    if mfcc_frames.launches <= before:
-        raise AssertionError("mfcc_frames did not launch its kernel")
-    ref = mfcc_frames_plain(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor)
-    mfcc_err = check_close("mfcc", got, ref, MFCC_RTOL, MFCC_ATOL)
-    mfcc_ms = cuda_ms(lambda: mfcc_frames(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor), 10)
-    mfcc_plain_ms = cuda_ms(
-        lambda: mfcc_frames_plain(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor), 10
-    )
-    say(f"mfcc_frames N={N} L={cfg.frame_length}: kernel {mfcc_ms:.3f} ms, "
-        f"plain {mfcc_plain_ms:.3f} ms, max abs err {mfcc_err:.3e}")
-    del frames, got, ref
+    mfcc_err = 0.0
+    # the main path's frames; 3 utterances of 37 frames (one tile crosses two
+    # utterance boundaries), with a near-silent stretch; 8 kHz frames (L = 200);
+    # 40 mel bands (two band groups)
+    cases = [(cfg, frames)]
+    for cfg_, B_, S_ in ((cfg, 3, 6160), (FrontendConfig(sample_rate=8000), 3, 3000),
+                         (FrontendConfig(num_mel=40), 2, 4321)):
+        sig = torch.from_numpy((rng.normal(size=(B_, S_)) * 0.1).astype(np.float32)).to(dev)
+        sig[:, : S_ // 3] *= 0.01
+        cases.append((cfg_, frame_signal(preemphasize(sig, cfg_.preemphasis),
+                                         num_frames(S_, cfg_), cfg_)))
+    for cfg_, fr in cases:
+        p_ = make_params(cfg_, dev)
+        args = (fr, *folded_bases(p_), p_.mel, p_.dct, cfg_.log_floor)
+        before = mfcc_frames.launches
+        got = mfcc_frames(*args, pack_basis(*folded_bases(p_)))
+        torch.cuda.synchronize()
+        if mfcc_frames.launches <= before:
+            raise AssertionError("mfcc_frames did not launch its kernel")
+        mfcc_err = max(mfcc_err, check_close(
+            f"mfcc {tuple(fr.shape)} at {cfg_.sample_rate} Hz", got,
+            mfcc_frames_plain(*args), MFCC_RTOL, MFCC_ATOL))
+    args = (frames, cosw, sinw, p.mel, p.dct, cfg.log_floor)
+    basis = pack_basis(cosw, sinw)
+    mfcc_ms = cuda_ms(lambda: mfcc_frames(*args, basis), 10)
+    mfcc_plain_ms = cuda_ms(lambda: mfcc_frames_plain(*args), 10)
+    cs = torch.cat([cosw, sinw], 1)
+    mfcc_lib_ms = cuda_ms(lambda: torch.matmul(frames, cs), 10)  # the DFT product alone
+    L_, bins_ = cosw.shape
+    mel_, ceps_ = p.dct.shape
+    dft_flop, rest_flop = N * 4.0 * L_ * bins_, N * (2.0 * bins_ * mel_ + 2.0 * mel_ * ceps_)
+    mfcc_bytes = 4.0 * (BATCH * ((T - 1) * cfg.frame_shift + L_) + 2 * L_ * bins_
+                        + bins_ * mel_ + mel_ * ceps_ + N * ceps_)
+    mfcc_bound = bound(rest_flop, mfcc_bytes, dft_flop)  # the DFT on the tensor cores
+    say(f"mfcc_frames N={N} L={L_}: kernel {mfcc_ms:.3f} ms, plain {mfcc_plain_ms:.3f} ms, "
+        f"matmul(frames, [cosw|sinw]) {mfcc_lib_ms:.3f} ms, bound {mfcc_bound[0]:.4f} ms "
+        f"({mfcc_bound[1]}, 3xTF32 DFT; on the fp32 pipes "
+        f"{bound(dft_flop + rest_flop, mfcc_bytes)[0]:.4f} ms), max abs err {mfcc_err:.3e}")
+    del frames, got, cases
 
     # ------------------- kernel phase: word-end block and row gather, ragged
     for shape in (dict(B=3, KW=1000, S1=5003, C=1999, C_sp=12),
@@ -218,12 +294,27 @@ def main() -> int:
     for path, run in (("word-end", we_run), ("gather", ga_run)):
         if not run["correct"]:
             raise AssertionError(f"{path} microbench: kernel differs from its plain version")
+    # their bounds: the bytes these inputs need (rows and emissions gathered once)
+    w_state, _, combo, _ = wordend_microbench.make_inputs(**wordend_microbench.SHAPE)
+    slots, c_sp = w_state.size, wordend_microbench.SHAPE["C_sp"]
+    states = np.unique(w_state)
+    emis_cells = np.unique(np.arange(w_state.shape[0])[:, None] * wordend_microbench.SHAPE["C"]
+                           + combo[w_state, 4]).size
+    we_bound = bound(2.0 * slots, 4.0 * (2 * slots + states.size * (5 + c_sp) + emis_cells
+                                         + slots * (5 + c_sp)))
+    table, idx = (torch.from_numpy(x).to(dev)
+                  for x in gather_microbench.make_inputs(**gather_microbench.SHAPE))
+    rows, width = idx.numel(), table.shape[1]
+    ga_bound = bound(0.0, 4.0 * (torch.unique(idx).numel() * width + rows + rows * width))
+    ga_lib_ms = cuda_graph_ms(lambda: torch.index_select(table, 0, idx), gather_microbench.REPS)
     say(f"wordend_block {wordend_microbench.SHAPE}: device time kernel {we_run['ms']:.4f} ms, "
-        f"plain {we_run['plain_ms']:.4f} ms; per eager call {we_run['eager_ms']:.4f} ms, "
-        f"plain {we_run['plain_eager_ms']:.4f} ms; launches {we_launches}")
+        f"plain {we_run['plain_ms']:.4f} ms, bound {we_bound[0]:.4f} ms ({we_bound[1]}); "
+        f"per eager call {we_run['eager_ms']:.4f} ms, plain {we_run['plain_eager_ms']:.4f} ms; "
+        f"launches {we_launches}")
     say(f"row_gather {gather_microbench.SHAPE}: device time kernel {ga_run['ms']:.4f} ms "
-        f"({ga_run['ns_per_row']:.3f} ns/row), plain {ga_run['plain_ms']:.4f} ms; per eager "
-        f"call {ga_run['eager_ms']:.4f} ms, plain {ga_run['plain_eager_ms']:.4f} ms; "
+        f"({ga_run['ns_per_row']:.3f} ns/row), plain {ga_run['plain_ms']:.4f} ms, "
+        f"index_select {ga_lib_ms:.4f} ms, bound {ga_bound[0]:.4f} ms ({ga_bound[1]}); "
+        f"per eager call {ga_run['eager_ms']:.4f} ms, plain {ga_run['plain_eager_ms']:.4f} ms; "
         f"launches {ga_launches}")
 
     # ------------------------- planted canary under both bench.py configs
@@ -323,7 +414,8 @@ def main() -> int:
     f2c, _ = s_cpu.frontend(x2.cpu(), torch.full((2,), small))
     check_close("features cuda vs cpu", f2.cpu(), f2c, 1e-3, 1e-3)
     check_close("emissions cuda vs cpu", e2.cpu(), s_cpu.scorer(f2c), 1e-4, 1e-2)
-    dec_a_cpu = TreeDecoder(s_cpu.tree, compile_ngram(s_cpu.lm), SLICE_A_BEAM)
+    dec_a_cpu = TreeDecoder(s_cpu.tree, compile_ngram(s_cpu.lm), SLICE_A_BEAM,
+                            device="cpu")
     for label, on_dev, on_host in (("production", s.decoder, s_cpu.decoder),
                                    ("slice A", dec_a, dec_a_cpu)):
         on_card = on_dev.decode_scores(e2, nf2)
@@ -338,20 +430,24 @@ def main() -> int:
         {"name": "gmm_scores", "route": "cuda", "source": "rasr_tpu_torch/csrc/gmm_fused.cu",
          "replaces": "rasr_tpu/ops/pallas/gmm_kernel.py:72",
          "launches": launches["gmm_scores"], "max_abs_err": gmm_err,
-         "ms": gmm_ms, "plain_ms": gmm_plain_ms},
+         "ms": gmm_ms, "plain_ms": gmm_plain_ms, "bound_ms": gmm_bound[0],
+         "bound_by": gmm_bound[1], "library_ms": gmm_lib_ms},
         {"name": "mfcc_frames", "route": "cuda", "source": "rasr_tpu_torch/csrc/mfcc_fused.cu",
          "replaces": "rasr_tpu/ops/pallas/frontend_kernel.py:50",
          "launches": launches["mfcc_frames"], "max_abs_err": mfcc_err,
-         "ms": mfcc_ms, "plain_ms": mfcc_plain_ms},
+         "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound[0],
+         "bound_by": mfcc_bound[1], "library_ms": mfcc_lib_ms},
         {"name": "wordend_block", "route": "cuda",
          "source": "rasr_tpu_torch/csrc/wordend_fused.cu",
          "replaces": "examples/pallas_wordend_microbench.py:81",
          "launches": we_launches["wordend_block"], "max_abs_err": we_run["max_abs_err"],
-         "ms": we_run["ms"], "plain_ms": we_run["plain_ms"]},
+         "ms": we_run["ms"], "plain_ms": we_run["plain_ms"], "bound_ms": we_bound[0],
+         "bound_by": we_bound[1], "library_ms": None},
         {"name": "row_gather", "route": "cuda", "source": "rasr_tpu_torch/csrc/row_gather.cu",
          "replaces": "examples/pallas_gather_microbench.py:36",
          "launches": ga_launches["row_gather"], "max_abs_err": ga_run["max_abs_err"],
-         "ms": ga_run["ms"], "plain_ms": ga_run["plain_ms"]},
+         "ms": ga_run["ms"], "plain_ms": ga_run["plain_ms"], "bound_ms": ga_bound[0],
+         "bound_by": ga_bound[1], "library_ms": ga_lib_ms},
     ]}
     print(json.dumps(record))
     print(tag)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file compiles with ``nvcc`` for Hopper (``sm_90a``),
-one ``nvcc`` per source, all started together, and the objects link into
+one ``nvcc`` per source, all started together (``csrc/*.cuh`` holds what
+several sources include), and the objects link into
 ONE shared library with a plain C interface, at first use, under
 ``csrc/build/`` (git-ignored). The library is loaded with ``ctypes``:
 device pointers and the CUDA stream pass as ``c_void_p``, sizes as
@@ -32,12 +33,12 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # name -> argtypes of each C entry point (all return cudaError_t as int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    # x, a_k, b_k, c_k, out, N, D, M, K, max_approx, stream
-    "gmm_scores_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # frames, cosw, sinw, mel, dct, out, B, T, stride_b, stride_t, L,
+    # x, packed [a; b] operand, c_k, out, N, D, M, K, max_approx, stream
+    "gmm_scores_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # frames, packed DFT basis, mel, dct, out, B, T, stride_b, stride_t, L,
     # bins, num_mel, num_ceps, log_floor, stream
     "mfcc_frames_launch": [
-        _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
+        _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
         _I, _I, _I, _I, ctypes.c_float, _P,
     ],
     # w_state, w_score, combo, emis, pre, w2, word, lemma, next, spk,
@@ -70,14 +71,16 @@ def _nvcc() -> str:
 
 
 def _sources():
+    """The translation units: one nvcc each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
-    """Content-addressed path of the built library (a source edit
-    rebuilds instead of loading a stale binary)."""
+    """Content-addressed path of the built library: an edit to a source
+    or to a header it includes rebuilds instead of loading a stale
+    binary."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

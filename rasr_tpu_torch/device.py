@@ -17,6 +17,13 @@ def cuda_device(index: int = 0) -> torch.device:
     return torch.device("cuda", index)
 
 
+def resolve(device=None) -> torch.device:
+    """``device``, or the card (:func:`cuda_device`) when it is None: the
+    port's entry points run on the card unless the caller names another
+    device, as the CPU tests do with ``device="cpu"``."""
+    return cuda_device() if device is None else torch.device(device)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` in ms over ``reps`` calls, after one
     warm-up call (CUDA events around the run of calls)."""

@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve
+
 LOG_2PI = math.log(2.0 * math.pi)
 PAD_SCORE = 1e30  # -log score of padding densities (never wins)
 
@@ -109,29 +111,59 @@ class MixtureSet:
         )
 
 
+#: the fused kernel's mixture tile and depth chunk (``csrc/gmm_fused.cu``)
+TILE_M, DEPTH_CHUNK = 64, 32
+
+
+def operand_shape(D: int, M: int, K: int):
+    """Shape of :func:`pack_operand`'s result: ``(T, K, P/8, 8, 8, 4, 2)``
+    for depth ``P = round_up(2 D, 32)`` and ``T`` tiles of 64 mixtures."""
+    P = -(-2 * D // DEPTH_CHUNK) * DEPTH_CHUNK
+    return (-(-M // TILE_M), K, P // 8, TILE_M // 8, 8, 4, 2)
+
+
+def pack_operand(a: torch.Tensor, b: torch.Tensor, M: int, K: int) -> torch.Tensor:
+    """The fused kernel's B operand, laid out once: ``[a; b]`` of every
+    density in the order in which the tensor cores' ``m16n8k8`` fragments
+    take it.
+
+    Depth ``P = round_up(2 D, 32)`` (rows ``[0, D)`` hold a, ``[D, 2D)``
+    hold b, the rest zero); mixtures pad to whole tiles of 64. The result
+    is ``[T, K, P/8, 8, 8, 4, 2]`` for T mixture tiles: per tile, per
+    density k, per 8-deep step s, per 8-mixture column block j and per
+    lane (g, t) = (lane / 4, lane % 4) the pair ``B[8s+t, 8j+g], B[8s+t+4,
+    8j+g]``. A lane loads its fragment with one 8-byte load, and one
+    density's 32-deep chunk of a tile is 8 KB of contiguous memory."""
+    D = a.shape[0]
+    T, _, S = operand_shape(D, M, K)[:3]
+    P = S * 8
+    w = torch.zeros((P, K, T * TILE_M), dtype=torch.float32, device=a.device)
+    w[:D, :, :M] = a.reshape(D, M, K).permute(0, 2, 1)
+    w[D:2 * D, :, :M] = b.reshape(D, M, K).permute(0, 2, 1)
+    w = w.reshape(P // 8, 2, 4, K, T, 8, 8)  # s, h, t, k, tile, j, g
+    return w.permute(4, 3, 0, 5, 6, 2, 1).contiguous()  # tile, k, s, j, g, t, h
+
+
 @dataclasses.dataclass(frozen=True)
 class ScoringTensors:
     """Precomputed scoring constants: a, b ``[D, M*K]`` (m-major), c
     ``[M*K]`` with +PAD_SCORE on padding densities.
 
-    The fused kernel reads the same constants k-major (``a_k``, ``b_k``
-    ``[K, D, M]``, ``c_k`` ``[K, M]``), so each density's columns are
-    contiguous; they are laid out once here, not per call."""
+    The fused kernel reads ``c`` k-major (``c_k [K, M]``) and ``[a; b]``
+    as the tensor-core operand of :func:`pack_operand`; both are
+    laid out once here, not per call."""
 
     a: torch.Tensor
     b: torch.Tensor
     c: torch.Tensor
     num_mixtures: int
     max_densities: int
-    a_k: torch.Tensor = dataclasses.field(init=False, repr=False)
-    b_k: torch.Tensor = dataclasses.field(init=False, repr=False)
+    operand: torch.Tensor = dataclasses.field(init=False, repr=False)
     c_k: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        D, M, K = self.a.shape[0], self.num_mixtures, self.max_densities
-        for name, t in (("a", self.a), ("b", self.b)):
-            kmaj = t.reshape(D, M, K).permute(2, 0, 1).contiguous()
-            object.__setattr__(self, name + "_k", kmaj)
+        M, K = self.num_mixtures, self.max_densities
+        object.__setattr__(self, "operand", pack_operand(self.a, self.b, M, K))
         object.__setattr__(self, "c_k", self.c.reshape(M, K).T.contiguous())
 
     @property
@@ -146,8 +178,9 @@ class ScoringTensors:
 
 
 def make_scoring_tensors(
-    ms: MixtureSet, var_floor: float = 1e-4, device="cpu"
+    ms: MixtureSet, var_floor: float = 1e-4, device=None
 ) -> ScoringTensors:
+    device = resolve(device)
     M, K, D = ms.means.shape
     var = np.maximum(ms.variances, var_floor).astype(np.float64)
     mean = ms.means.astype(np.float64)

@@ -26,7 +26,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from rasr_tpu.models.lm.arpa import NgramLm
+from .arpa import NgramLm
 
 _H1 = np.uint32(0x9E3779B1)
 _H2 = np.uint32(0x85EBCA6B)

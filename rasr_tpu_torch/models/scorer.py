@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve
 from ..ops.kernels.gmm import gmm_scores
 from .gmm import MixtureSet, ScoringTensors, make_scoring_tensors
 
@@ -61,7 +62,7 @@ class GmmFeatureScorer(FeatureScorer):
         scale: float = 1.0,
         max_approx: bool = True,
         var_floor: float = 1e-4,
-        device="cpu",
+        device=None,
         tensors: ScoringTensors = None,
     ):
         super().__init__()
@@ -85,9 +86,9 @@ register_scorer("batch-diagonal-maximum")(GmmFeatureScorer)  # reference alias
 class PrecomputedScorer(FeatureScorer):
     """Serves an externally computed ``[B, T, M]`` score matrix."""
 
-    def __init__(self, scores: np.ndarray, scale: float = 1.0, device="cpu"):
+    def __init__(self, scores: np.ndarray, scale: float = 1.0, device=None):
         super().__init__()
-        self._scores = torch.as_tensor(scores, device=device)
+        self._scores = torch.as_tensor(scores, device=resolve(device))
         self.scale = scale
         self.num_classes = scores.shape[-1]
 

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .kernels.mfcc import folded_bases, mfcc_frames
+from ..device import resolve
+from .kernels.mfcc import folded_bases, mfcc_frames, pack_basis
 
 
 # --------------------------------------------------------------------- config
@@ -168,7 +169,8 @@ class FrontendParams:
         return FrontendParams(*(t.to(device) for t in self.tensors()))
 
 
-def make_params(cfg: FrontendConfig, device="cpu") -> FrontendParams:
+def make_params(cfg: FrontendConfig, device=None) -> FrontendParams:
+    device = resolve(device)
     cos_b, sin_b = dft_matrices(cfg.frame_length, cfg.padded_fft_size)
     mel = mel_filterbank(
         cfg.num_mel, cfg.num_bins, cfg.padded_fft_size, cfg.sample_rate,
@@ -305,7 +307,7 @@ class FeatureFrontend(nn.Module):
         lda: Optional[np.ndarray] = None,
         delta_order: int = 0,
         vtln_warp: Optional[np.ndarray] = None,
-        device="cpu",
+        device=None,
         params: Optional[FrontendParams] = None,
     ):
         super().__init__()
@@ -317,6 +319,7 @@ class FeatureFrontend(nn.Module):
             raise NotImplementedError("sliding-window CMVN is not ported yet")
         if cfg.append_energy:
             raise NotImplementedError("append_energy is not ported yet")
+        device = resolve(device)
         self.cfg = cfg
         self.splice_context = splice_context
         params = make_params(cfg, device) if params is None else params.to(device)
@@ -325,6 +328,7 @@ class FeatureFrontend(nn.Module):
         cosw, sinw = folded_bases(params)
         self.register_buffer("cosw", cosw)
         self.register_buffer("sinw", sinw)
+        self.register_buffer("basis", pack_basis(cosw, sinw))
         if lda is None:
             self.lda = None
         else:
@@ -355,7 +359,7 @@ class FeatureFrontend(nn.Module):
         frames = frame_signal(x, max_frames, cfg)
         if frames.is_cuda:
             feats = mfcc_frames(frames, self.cosw, self.sinw, self.mel, self.dct,
-                                cfg.log_floor)
+                                cfg.log_floor, self.basis)
         else:
             feats = mfcc_from_frames(frames, self.params, cfg)
         n_frames = torch.where(

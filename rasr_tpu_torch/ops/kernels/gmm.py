@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from ...models.gmm import ScoringTensors
+from ...models.gmm import ScoringTensors, operand_shape
 from ...models.gmm import mixture_scores as gmm_scores_plain
 
 __all__ = ["gmm_scores", "gmm_scores_plain"]
@@ -32,17 +32,17 @@ def gmm_scores(feats: torch.Tensor, st: ScoringTensors, max_approx: bool = True)
         raise ValueError("features must be contiguous")
     if D != st.dim:
         raise ValueError(f"feature dim {D} != model dim {st.dim}")
-    for name, t, shape in (("a_k", st.a_k, (K, D, M)), ("b_k", st.b_k, (K, D, M)),
+    for name, t, shape in (("operand", st.operand, operand_shape(D, M, K)),
                            ("c_k", st.c_k, (K, M))):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, features on {x.device}")
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 {shape}")
     out = torch.empty((N, M), dtype=torch.float32, device=x.device)
-    if N:
+    if N and M:
         lib = _build.library()
         code = lib.gmm_scores_launch(
-            x.data_ptr(), st.a_k.data_ptr(), st.b_k.data_ptr(), st.c_k.data_ptr(),
+            x.data_ptr(), st.operand.data_ptr(), st.c_k.data_ptr(),
             out.data_ptr(), N, D, M, K, int(bool(max_approx)),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

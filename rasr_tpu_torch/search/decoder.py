@@ -46,6 +46,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..models.lm.ngram import LookupTables, NgramTables, lookup_prepared, prepare_lookup
 from .tree import BIG, WORD_NONE, PrefixTree
 
@@ -125,7 +126,8 @@ def _branch_src_of(br_ptr: np.ndarray, S: int, num_arcs: int) -> np.ndarray:
     return src
 
 
-def tree_to_device(tree: PrefixTree, device="cpu") -> TreeTables:
+def tree_to_device(tree: PrefixTree, device=None) -> TreeTables:
+    device = resolve(device)
     S = tree.num_states
     SENT = S
     ecls = np.concatenate([tree.emission_class, [0]]).astype(np.int64)
@@ -686,7 +688,7 @@ class TreeDecoder:
         cfg: BeamConfig = BeamConfig(),
         bigram_la=None,
         rnn_fusion=None,
-        device="cpu",
+        device=None,
         tables: Optional[TreeTables] = None,
     ):
         if bigram_la is not None:
@@ -694,7 +696,7 @@ class TreeDecoder:
         if rnn_fusion is not None:
             raise NotImplementedError("RNN-LM fusion is not ported yet")
         _check_ported(cfg)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.tree = tree
         self.tables = (
             tree_to_device(tree, self.device) if tables is None else tables.to(self.device)

@@ -3,11 +3,11 @@
 A JAX-free copy of the within-word builder of ``rasr_tpu/search/tree.py``
 (``PrefixTree``, ``build_prefix_tree``, ``_flatten_tree``,
 ``_lm_word_of``, ``compute_lookahead``), held equal to it field by field
-by ``tests/test_torch_tree.py``. The reference module reaches jax only
-through its ``BIG`` constant (imported from ``ops/viterbi.py``); this
-copy defines ``BIG`` locally and goes away once ``BIG`` moves out of
-``ops/viterbi.py`` and the port can import the reference builder without
-jax. The across-word network (``across_word=True``) is not ported yet.
+by ``tests/test_torch_tree.py``. The port imports nothing of
+``rasr_tpu``: this copy defines the reference's ``BIG`` constant
+(``ops/viterbi.py``) locally and builds over the port's own lexicon,
+tying and HMM modules. The across-word network (``across_word=True``)
+is not ported yet.
 
 Tree nodes are phone arcs (word-internal triphones; word-boundary
 contexts use the ``#`` approximation), shared across words with the same
@@ -23,10 +23,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from rasr_tpu.corpus.lexicon import Lexicon
-from rasr_tpu.models.allophone import AllophoneAlphabet
-from rasr_tpu.models.hmm import HmmTopology, TransitionModel
-from rasr_tpu.models.tying import StateTying
+from ..corpus.lexicon import Lexicon
+from ..models.allophone import AllophoneAlphabet
+from ..models.hmm import HmmTopology, TransitionModel
+from ..models.tying import StateTying
 
 BIG = 1.0e30  # the reference's "infinite" cost (rasr_tpu/ops/viterbi.py)
 

@@ -18,9 +18,11 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .host import (
-    HmmTopology, Lexicon, NgramLm, StateTying, TransitionModel, build_default_silence,
-)
+from .corpus.lexicon import Lexicon, build_default_silence
+from .models.hmm import HmmTopology, TransitionModel
+from .models.lm.arpa import NgramLm
+from .models.tying import StateTying
+from .device import resolve
 from .models.gmm import MixtureSet
 from .models.lm.ngram import compile_ngram
 from .models.scorer import GmmFeatureScorer
@@ -90,9 +92,10 @@ def build_setup(
     densities: int = 8,
     feat_dim: int = 45,
     seed: int = 0,
-    device="cpu",
+    device=None,
     beam: BeamConfig = PRODUCTION_BEAM,
 ) -> Setup:
+    device = resolve(device)
     rng = np.random.default_rng(seed)
     lex = Lexicon()
     build_default_silence(lex)

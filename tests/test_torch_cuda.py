@@ -32,7 +32,7 @@ from rasr_tpu_torch.ops.frontend import (  # noqa: E402
 )
 from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain  # noqa: E402
 from rasr_tpu_torch.ops.kernels.mfcc import (  # noqa: E402
-    folded_bases, mfcc_frames, mfcc_frames_plain,
+    folded_bases, mfcc_frames, mfcc_frames_plain, pack_basis,
 )
 from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain  # noqa: E402
 from rasr_tpu_torch.ops.kernels.wordend import (  # noqa: E402
@@ -66,9 +66,13 @@ def _mixtures(rng, M, K, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_approx", [True, False])
-@pytest.mark.parametrize("N,M,K,D", [(1000, 70, 3, 45), (5, 13, 2, 9), (300, 129, 8, 17)])
+@pytest.mark.parametrize("N,M,K,D", [(1000, 70, 3, 45), (5, 13, 2, 9), (300, 129, 8, 17),
+                                     (257, 65, 2, 64), (130, 66, 3, 80), (257, 65, 2, 96),
+                                     (140, 70, 3, 150)])
 def test_gmm_kernel_matches_plain(card, max_approx, N, M, K, D):
-    """Ragged frame / mixture / feature edges; fp32 sums in another order."""
+    """Ragged frame / mixture / feature edges; fp32 sums in another order.
+    D > 48 streams each density's depth in several chunks; D = 80 is the
+    largest resident frame tile, and deeper models stream the frames too."""
     rng = np.random.default_rng(N + M)
     st = make_scoring_tensors(_mixtures(rng, M, K, D), device=card)
     x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(card)
@@ -80,21 +84,26 @@ def test_gmm_kernel_matches_plain(card, max_approx, N, M, K, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,fft", [(3, 16000, 0), (1, 1200, 0), (2, 4321, 1024)])
-def test_mfcc_kernel_matches_plain(card, B, S, fft):
-    """Strided frame views of the signal, frame counts off the tile, and
-    more bins than one thread block has threads (1024-point FFT)."""
-    cfg = FrontendConfig(fft_size=fft)
+@pytest.mark.parametrize("B,S,fft,num_mel", [(3, 16000, 0, 20), (1, 1200, 0, 20),
+                                             (2, 4321, 1024, 20), (3, 16000, 0, 40),
+                                             (2, 4321, 0, 80)])
+def test_mfcc_kernel_matches_plain(card, B, S, fft, num_mel):
+    """Strided frame views of the signal, frame counts off the tile, more
+    bins than one thread block has threads (1024-point FFT), and more mel
+    bands than one group of 32 (at 80 the frames are read from global
+    memory: the staged span no longer fits beside the mel rows)."""
+    cfg = FrontendConfig(fft_size=fft, num_mel=num_mel)
     p = make_params(cfg, card)
     cosw, sinw = folded_bases(p)
+    basis = pack_basis(cosw, sinw)
     rng = np.random.default_rng(S)
     sig = torch.from_numpy((rng.normal(size=(B, S)) * 0.1).astype(np.float32)).to(card)
     frames = frame_signal(preemphasize(sig, cfg.preemphasis), num_frames(S, cfg), cfg)
-    got = mfcc_frames(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor)
+    got = mfcc_frames(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor, basis)
     want = mfcc_frames_plain(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     flat = mfcc_frames(frames.reshape(-1, cfg.frame_length).contiguous(), cosw, sinw,
-                       p.mel, p.dct, cfg.log_floor)
+                       p.mel, p.dct, cfg.log_floor, basis)
     torch.testing.assert_close(flat.reshape(got.shape), got, rtol=0, atol=0)
 
 
@@ -112,8 +121,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     cfg = FrontendConfig()
     p = make_params(cfg, card)
     cosw, sinw = folded_bases(p)
+    basis = pack_basis(cosw, sinw)
     with pytest.raises(ValueError):
-        mfcc_frames(torch.zeros((2, 399), device=card), cosw, sinw, p.mel, p.dct, 1e-10)
+        mfcc_frames(torch.zeros((2, 399), device=card), cosw, sinw, p.mel, p.dct, 1e-10, basis)
+    with pytest.raises(ValueError):
+        mfcc_frames(torch.zeros((2, 400), device=card), cosw, sinw, p.mel, p.dct, 1e-10,
+                    basis[:-1])
 
 
 @pytest.mark.cuda
@@ -181,7 +194,7 @@ def test_slice_on_card_equals_cpu(card, slice_b):
         beam = dataclasses.replace(beam, root_arc_limit=12, root_select=48,
                                    deferred_emission=True)
     kw = dict(num_words=80, num_phones=12, num_classes=150, densities=4, beam=beam)
-    on_card, on_cpu = build_setup(device=card, **kw), build_setup(**kw)
+    on_card, on_cpu = build_setup(device=card, **kw), build_setup(**kw, device="cpu")
     x = torch.from_numpy((np.random.default_rng(3).normal(size=(3, 12000)) * 0.1)
                          .astype(np.float32))
     lengths = torch.tensor([12000, 9000, 5000])
@@ -221,6 +234,20 @@ def test_cuda_device_and_build_errors():
     assert path.parent == _build.BUILD_DIR and path == _build.library_path()
     assert {s.name for s in _build._sources()} == {
         "gmm_fused.cu", "mfcc_fused.cu", "row_gather.cu", "wordend_fused.cu"}
+
+
+@pytest.mark.parametrize("edited", ["tf32x3.cuh", "gmm_fused.cu"])
+def test_library_path_follows_sources_and_headers(tmp_path, monkeypatch, edited):
+    """An edit to a shared header, as to a source, names another library,
+    so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    assert before == _build.library_path()
+    with open(csrc / edited, "a") as fh:
+        fh.write("\n// edited\n")
+    assert _build.library_path() != before
 
 
 def test_entry_points_match_the_c_sources():

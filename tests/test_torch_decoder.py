@@ -123,7 +123,7 @@ def test_pruning_off_equals_exhaustive_oracle(oracle_setup, rng):
     lex, topo, tying, trans, lm, tree = oracle_setup
     M, T, lm_scale = tying.num_classes, 7, 0.7
     dec = TreeDecoder(tree, compile_ngram(lm), BeamConfig(
-        max_hyps=256, beam=1e9, word_end_limit=64, root_hyps=256, lm_scale=lm_scale))
+        max_hyps=256, beam=1e9, word_end_limit=64, root_hyps=256, lm_scale=lm_scale), device="cpu")
     for _ in range(2):
         emis = rng.uniform(0.0, 6.0, size=(1, T, M)).astype(np.float32)
         (res,) = dec.decode_scores(emis, np.array([T]))
@@ -153,7 +153,7 @@ def _assert_port_equals_jax(jtree, ttree, lm, num_classes, kw, seed):
     n = np.array([14, 11, 9])
     jax_decoder = jdec.TreeDecoder(jtree, jax_compile_ngram(lm), jdec.BeamConfig(**kw))
     want = jax_decoder.decode_scores(emis, n)
-    decoder = TreeDecoder(ttree, compile_ngram(lm), BeamConfig(**kw))
+    decoder = TreeDecoder(ttree, compile_ngram(lm), BeamConfig(**kw), device="cpu")
     handle = decoder.decode_scores_device(emis, n)
     got = decoder.results_from_device(handle)
     for a, b in zip(got, want):
@@ -286,7 +286,8 @@ def test_slice_b_pruning_off_equals_exhaustive_oracle(oracle_setup, rng, option)
     lex, topo, tying, trans, lm, tree = oracle_setup
     M, T, lm_scale = tying.num_classes, 7, 0.7
     dec = TreeDecoder(tree, compile_ngram(lm), BeamConfig(
-        max_hyps=256, beam=1e9, word_end_limit=64, root_hyps=256, lm_scale=lm_scale, **option))
+        max_hyps=256, beam=1e9, word_end_limit=64, root_hyps=256, lm_scale=lm_scale, **option),
+        device="cpu")
     for _ in range(2):
         emis = rng.uniform(0.0, 6.0, size=(1, T, M)).astype(np.float32)
         (res,) = dec.decode_scores(emis, np.array([T]))
@@ -314,7 +315,7 @@ def test_planted_canary():
     for t, c in enumerate(seq):
         emis[0, t, c] = 0.0
     dec = TreeDecoder(tree, compile_ngram(lm), BeamConfig(max_hyps=64, word_end_limit=16,
-                                                          lm_scale=0.5))
+                                                          lm_scale=0.5), device="cpu")
     (res,) = dec.decode_scores(torch.from_numpy(emis), np.array([len(seq)]))
     assert [l.primary_orth for l in res.lemmas] == ["[SILENCE]", "AB"]
     assert res.word_ends == [1, 5]
@@ -342,7 +343,7 @@ def test_planted_canary_slice_b():
         emis[0, t, c] = 0.0
     dec = TreeDecoder(tree, compile_ngram(lm), BeamConfig(
         max_hyps=64, word_end_limit=16, lm_scale=0.5, root_hyps=4, root_select=8,
-        root_arc_limit=2, branch_hyps=16, deferred_emission=True))
+        root_arc_limit=2, branch_hyps=16, deferred_emission=True), device="cpu")
     (res,) = dec.decode_scores(torch.from_numpy(emis), np.array([len(seq)]))
     assert [l.primary_orth for l in res.lemmas] == ["[SILENCE]", "AB"]
     assert res.word_ends == [1, 5]
@@ -353,7 +354,7 @@ def test_batched_ragged_equals_single(rich_setup, rng):
     emis = rng.uniform(0.0, 6.0, size=(3, 10, tying.num_classes)).astype(np.float32)
     n = torch.tensor([5, 10, 7])
     dec = TreeDecoder(ttree, compile_ngram(lm), BeamConfig(max_hyps=64, word_end_limit=16,
-                                                           lm_scale=0.7))
+                                                           lm_scale=0.7), device="cpu")
     batch = dec.decode_scores(emis, n)
     for b in range(3):
         (single,) = dec.decode_scores(emis[b : b + 1, : n[b]], n[b : b + 1])
@@ -366,7 +367,7 @@ def test_device_handles_own_their_records(rich_setup, rng):
     its own records (no shared last-decode slot)."""
     lex, tying, lm, jtree, ttree = rich_setup
     dec = TreeDecoder(ttree, compile_ngram(lm), BeamConfig(max_hyps=32, word_end_limit=8,
-                                                           lm_scale=0.7))
+                                                           lm_scale=0.7), device="cpu")
     e1 = rng.uniform(0.0, 6.0, size=(2, 9, tying.num_classes)).astype(np.float32)
     e2 = rng.uniform(0.0, 6.0, size=(2, 12, tying.num_classes)).astype(np.float32)
     want1 = dec.decode_scores(e1, [9, 8])
@@ -382,8 +383,8 @@ def test_device_handles_own_their_records(rich_setup, rng):
 def test_tree_tables_convert_from_jax(rich_setup, rng):
     lex, tying, lm, jtree, ttree = rich_setup
     jdecoder = jdec.TreeDecoder(jtree, jax_compile_ngram(lm), jdec.BeamConfig())
-    carried = convert.tree_tables_from_jax(jdecoder.tables)
-    native = tree_to_device(ttree)
+    carried = convert.tree_tables_from_jax(jdecoder.tables, device="cpu")
+    native = tree_to_device(ttree, device="cpu")
     for f in dataclasses.fields(native):
         a, b = getattr(carried, f.name), getattr(native, f.name)
         if isinstance(b, torch.Tensor):
@@ -393,8 +394,9 @@ def test_tree_tables_convert_from_jax(rich_setup, rng):
             assert a == b, f.name
     cfg = BeamConfig(max_hyps=16, word_end_limit=4, root_hyps=2, lm_scale=0.7)
     emis = rng.uniform(0.0, 6.0, size=(1, 8, tying.num_classes)).astype(np.float32)
-    a = TreeDecoder(jtree, convert.ngram_tables_from_jax(jdecoder.lm), cfg, tables=carried)
-    b = TreeDecoder(ttree, compile_ngram(lm), cfg)
+    a = TreeDecoder(jtree, convert.ngram_tables_from_jax(jdecoder.lm, "cpu"), cfg,
+                    tables=carried, device="cpu")
+    b = TreeDecoder(ttree, compile_ngram(lm), cfg, device="cpu")
     assert a.decode_scores(emis, [8])[0].words == b.decode_scores(emis, [8])[0].words
 
 
@@ -402,15 +404,15 @@ def test_tree_tables_convert_from_jax(rich_setup, rng):
 def test_unported_beam_options_raise(oracle_setup, option):
     *_, lm, tree = oracle_setup
     with pytest.raises(NotImplementedError):
-        TreeDecoder(tree, compile_ngram(lm), BeamConfig(**option))
+        TreeDecoder(tree, compile_ngram(lm), BeamConfig(**option), device="cpu")
 
 
 def test_unported_decoder_features_raise(oracle_setup):
     *_, lm, tree = oracle_setup
     with pytest.raises(NotImplementedError):
-        TreeDecoder(tree, compile_ngram(lm), bigram_la=object())
+        TreeDecoder(tree, compile_ngram(lm), bigram_la=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        TreeDecoder(tree, compile_ngram(lm), rnn_fusion=object())
-    dec = TreeDecoder(tree, compile_ngram(lm))
+        TreeDecoder(tree, compile_ngram(lm), rnn_fusion=object(), device="cpu")
+    dec = TreeDecoder(tree, compile_ngram(lm), device="cpu")
     with pytest.raises(NotImplementedError):
         dec.decode_scores(np.zeros((1, 2, 3), np.float32), [2], beam_axis="model")

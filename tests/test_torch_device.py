@@ -1,0 +1,76 @@
+"""The port's entry points run on the card unless the caller names a
+device: called without ``device`` they take ``cuda_device()``, which
+raises where no card is visible (as here), so nothing silently runs on
+the CPU. With ``device="cpu"`` they build on the CPU, as the CPU tests
+ask."""
+
+import numpy as np
+import pytest
+import torch
+
+from rasr_tpu_torch import convert
+from rasr_tpu_torch.corpus.lexicon import Lexicon, build_default_silence
+from rasr_tpu_torch.device import cuda_device
+from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
+from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
+from rasr_tpu_torch.models.lm.arpa import NgramLm
+from rasr_tpu_torch.models.lm.ngram import compile_ngram
+from rasr_tpu_torch.models.scorer import GmmFeatureScorer, PrecomputedScorer
+from rasr_tpu_torch.models.tying import MonophoneStateTying
+from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig, make_params
+from rasr_tpu_torch.search.decoder import TreeDecoder, tree_to_device
+from rasr_tpu_torch.search.tree import build_prefix_tree
+from rasr_tpu_torch.synthetic import build_setup
+
+
+def _mixtures():
+    rng = np.random.default_rng(0)
+    return MixtureSet.single_density(rng.normal(size=(4, 3)).astype(np.float32),
+                                     np.ones((4, 3), np.float32))
+
+
+def _tree_and_lm():
+    lex = Lexicon()
+    build_default_silence(lex)
+    lex.add_lemma(["AB"], [(["a", "b"], 0.0)])
+    topo = HmmTopology(states_per_phone=1, silence_states=1)
+    lm = NgramLm.train_from_text([["AB", "AB"]], order=2)
+    tree = build_prefix_tree(lex, MonophoneStateTying(lex, topo), topo, TransitionModel(),
+                             lm_vocab=lm.vocab)
+    return tree, compile_ngram(lm)
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.buffers())
+    return [v for v in vars(obj).values() if isinstance(v, torch.Tensor)]
+
+
+ENTRY_POINTS = {
+    "build_setup": lambda **kw: build_setup(num_words=10, num_phones=4, num_classes=12,
+                                            densities=1, **kw).scorer,
+    "TreeDecoder": lambda **kw: TreeDecoder(*_tree_and_lm(), **kw).tables,
+    "FeatureFrontend": lambda **kw: FeatureFrontend(FrontendConfig(), **kw),
+    "GmmFeatureScorer": lambda **kw: GmmFeatureScorer(_mixtures(), **kw).tensors,
+    "make_scoring_tensors": lambda **kw: make_scoring_tensors(_mixtures(), **kw),
+    "make_params": lambda **kw: make_params(FrontendConfig(), **kw),
+    "tree_to_device": lambda **kw: tree_to_device(_tree_and_lm()[0], **kw),
+    "PrecomputedScorer": lambda **kw: PrecomputedScorer(np.zeros((1, 2, 3), np.float32),
+                                                        **kw)._scores,
+    "scoring_tensors_from_jax": lambda **kw: convert.scoring_tensors_from_jax(
+        make_scoring_tensors(_mixtures(), device="cpu"), **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    build = ENTRY_POINTS[name]
+    assert all(t.device.type == "cpu" for t in _tensors(build(device="cpu")))
+    if torch.cuda.is_available():
+        card = cuda_device()
+        assert all(t.device == card for t in _tensors(build()))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device visible"):
+            build()

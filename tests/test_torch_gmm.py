@@ -43,7 +43,7 @@ def _jax_mixtures(ms):
 def test_mixture_scores_match_jax_and_pallas(rng, max_approx):
     ms = _mixtures(rng, M=13, K=3, D=9)
     jst = jgmm.make_scoring_tensors(_jax_mixtures(ms))
-    st = tgmm.make_scoring_tensors(ms)
+    st = tgmm.make_scoring_tensors(ms, device="cpu")
     x = rng.normal(size=(2, 5, 9)).astype(np.float32)
     got = tgmm.mixture_scores(torch.from_numpy(x), st, max_approx).numpy()
     want = np.asarray(jgmm.mixture_scores(jnp.asarray(x), jst, max_approx))
@@ -62,15 +62,20 @@ def test_mixture_scores_match_jax_and_pallas(rng, max_approx):
 def test_scoring_tensors_match_jax_and_convert(rng):
     ms = _mixtures(rng, M=6, K=4, D=5)
     jst = jgmm.make_scoring_tensors(_jax_mixtures(ms), var_floor=0.6)
-    st = tgmm.make_scoring_tensors(ms, var_floor=0.6)
-    carried = convert.scoring_tensors_from_jax(jst)
+    st = tgmm.make_scoring_tensors(ms, var_floor=0.6, device="cpu")
+    carried = convert.scoring_tensors_from_jax(jst, device="cpu")
     for t in (st, carried):
         for name in ("a", "b", "c"):
             np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(jst, name)))
         assert (t.num_mixtures, t.max_densities, t.dim) == (6, 4, 5)
-        # the kernel's k-major layout: a_k[k, d, m] = a[d, m*K + k]
-        a = np.asarray(jst.a).reshape(5, 6, 4)
-        np.testing.assert_array_equal(t.a_k.numpy(), a.transpose(2, 0, 1))
+        # the kernel's operand: [a; b] per density k, depth padded to 32 and
+        # mixtures to 64, in fragment order
+        op = t.operand.numpy()
+        assert op.shape == (1, 4, 4, 8, 8, 4, 2)  # tile, k, s, j, g, t, h
+        full = op.transpose(1, 2, 6, 5, 0, 3, 4).reshape(4, 32, 64)  # k, depth, mixture
+        ab = np.concatenate([np.asarray(jst.a), np.asarray(jst.b)]).reshape(10, 6, 4)
+        np.testing.assert_array_equal(full[:, :10, :6], ab.transpose(2, 0, 1))
+        assert not full[:, 10:].any() and not full[:, :, 6:].any()
         np.testing.assert_array_equal(
             t.c_k.numpy(), np.asarray(jst.c).reshape(6, 4).T
         )
@@ -102,14 +107,14 @@ def test_gmm_scorer_matches_jax(rng, monkeypatch, use_pallas):
     ms = _mixtures(rng, M=11, K=3, D=7)
     x = rng.normal(size=(3, 6, 7)).astype(np.float32)
     want = jscorer.GmmFeatureScorer(_jax_mixtures(ms), scale=2.0, use_pallas=use_pallas)(x)
-    scorer = tscorer.create_scorer("batch-diagonal-maximum", ms, scale=2.0)
+    scorer = tscorer.create_scorer("batch-diagonal-maximum", ms, scale=2.0, device="cpu")
     np.testing.assert_allclose(scorer(torch.from_numpy(x)).numpy(), np.asarray(want), **TOL)
     assert scorer.num_classes == 11
 
 
 def test_precomputed_scorer_and_registry(rng):
     scores = rng.normal(size=(2, 4, 3)).astype(np.float32)
-    sc = tscorer.create_scorer("precomputed", scores, scale=0.5)
+    sc = tscorer.create_scorer("precomputed", scores, scale=0.5, device="cpu")
     np.testing.assert_allclose(sc(torch.zeros(2, 4, 1), lengths=None).numpy(), 0.5 * scores)
     with pytest.raises(KeyError):
         tscorer.create_scorer("no-such-scorer")

@@ -34,7 +34,7 @@ def test_compiled_tables_bit_identical(order):
     lm = NgramLm.train_from_text(TEXTS, order=order)
     want = jlm.compile_ngram(lm)
     got = tlm.compile_ngram(lm)
-    carried = convert.ngram_tables_from_jax(want)
+    carried = convert.ngram_tables_from_jax(want, device="cpu")
     for t in (got, carried):
         for f in FIELDS:
             assert _bits_equal(getattr(t, f).numpy(), getattr(want, f)), f

@@ -38,7 +38,7 @@ BEAM_B = dict(BEAM, root_arc_limit=10, root_select=24, deferred_emission=True)
 
 def _pipelines(BEAM):
     s = build_setup(num_words=60, num_phones=12, num_classes=120, densities=4,
-                    beam=BeamConfig(**BEAM))
+                    beam=BeamConfig(**BEAM), device="cpu")
     lm = s.lm
     unigrams = {wid: lm.ngrams[(wid,)][0] for wid in lm.vocab.values()}
     jtree = jax_build_prefix_tree(
@@ -55,10 +55,10 @@ def _pipelines(BEAM):
     carried = (
         FeatureFrontend(FrontendConfig(**dataclasses.asdict(jfe.cfg)), splice_context=4,
                         lda=np.asarray(jfe.lda),
-                        params=convert.frontend_params_from_jax(jfe.params)),
-        GmmFeatureScorer(None, tensors=convert.scoring_tensors_from_jax(jsc.tensors)),
-        TreeDecoder(jtree, convert.ngram_tables_from_jax(jdec.lm), BeamConfig(**BEAM),
-                    tables=convert.tree_tables_from_jax(jdec.tables)),
+                        params=convert.frontend_params_from_jax(jfe.params, "cpu"), device="cpu"),
+        GmmFeatureScorer(None, tensors=convert.scoring_tensors_from_jax(jsc.tensors, "cpu")),
+        TreeDecoder(jtree, convert.ngram_tables_from_jax(jdec.lm, "cpu"), BeamConfig(**BEAM),
+                    tables=convert.tree_tables_from_jax(jdec.tables, "cpu"), device="cpu"),
     )
     native = (s.frontend, s.scorer, s.decoder)
     return jax_side, carried, native
@@ -120,7 +120,7 @@ def test_build_setup_applies_bench_branch_width_rule():
     Kb x the largest overflow degree fits 4096 - 3K, else compact slots,
     which the port does not run yet and so refuses."""
     kw = dict(num_words=60, num_phones=12, num_classes=120, densities=4)
-    s = build_setup(**kw)
+    s = build_setup(**kw, device="cpu")
     assert s.beam == PRODUCTION_BEAM and s.decoder.cfg.root_select == 512
     deg = s.tree.arc_ptr[1:] - s.tree.arc_ptr[:-1]
     db = max(int((deg[1:] - 2).max()), 1)
@@ -130,4 +130,4 @@ def test_build_setup_applies_bench_branch_width_rule():
     assert 300 * db > 256
     assert auto_branch_width(s.tree, wide) == 254
     with pytest.raises(NotImplementedError):
-        build_setup(**kw, beam=wide)
+        build_setup(**kw, beam=wide, device="cpu")

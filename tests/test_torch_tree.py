@@ -11,35 +11,36 @@ from rasr_tpu.models.hmm import HmmTopology, Tdp, TransitionModel
 from rasr_tpu.models.lm.arpa import NgramLm
 from rasr_tpu.models.tying import MonophoneStateTying
 from rasr_tpu.search import tree as jtree
+from rasr_tpu_torch.corpus import lexicon as tlexicon
+from rasr_tpu_torch.models import hmm as thmm
+from rasr_tpu_torch.models import tying as ttying
+from rasr_tpu_torch.models.lm import arpa as tarpa
 from rasr_tpu_torch.search import tree as ttree
 
 ARRAYS = ("emission_class", "loop_cost", "arc_ptr", "arc_dst", "arc_cost", "we_word",
           "we_cost", "we_lemma", "lookahead", "we_next")
 
 
-def _setup(states_per_phone):
-    lex = Lexicon()
-    build_default_silence(lex)
+def _setup(states_per_phone, lexicon=Lexicon, silence=build_default_silence,
+           topology=HmmTopology, tying=MonophoneStateTying, lm_class=NgramLm):
+    lex = lexicon()
+    silence(lex)
     for orth, pron in (("AB", "a b"), ("BA", "b a"), ("AA", "a a"), ("BAB", "b a b"),
                        ("ABC", "a b c"), ("C", "c"), ("AB2", "a b")):
         lex.add_lemma([orth], [(pron.split(), 0.25 * len(orth))])
-    topo = HmmTopology(states_per_phone=states_per_phone, silence_states=1)
-    lm = NgramLm.train_from_text([["AB", "BA"], ["ABC", "C", "AA"], ["BAB", "AB2"]], order=2)
-    return lex, topo, MonophoneStateTying(lex, topo), lm
+    topo = topology(states_per_phone=states_per_phone, silence_states=1)
+    lm = lm_class.train_from_text([["AB", "BA"], ["ABC", "C", "AA"], ["BAB", "AB2"]], order=2)
+    return lex, topo, tying(lex, topo), lm
 
 
-@pytest.mark.parametrize("lookahead", [False, True])
-@pytest.mark.parametrize("skip_scope,states", [("word", 3), ("phone", 3), ("word", 1)])
-def test_prefix_tree_equals_reference(lookahead, skip_scope, states):
-    lex, topo, tying, lm = _setup(states)
-    trans = TransitionModel(
-        speech=Tdp(loop=1.0, forward=0.0, skip=2.0, exit=0.5),
-        silence=Tdp(loop=0.2, forward=0.5, skip=math.inf, exit=0.3),
+def _transitions(tdp, transition_model):
+    return transition_model(
+        speech=tdp(loop=1.0, forward=0.0, skip=2.0, exit=0.5),
+        silence=tdp(loop=0.2, forward=0.5, skip=math.inf, exit=0.3),
     )
-    uni = {w: lm.score((), w) for w in lm.vocab.values()} if lookahead else None
-    kw = dict(lm_vocab=lm.vocab, lm_unigrams=uni, skip_scope=skip_scope)
-    want = jtree.build_prefix_tree(lex, tying, topo, trans, **kw)
-    got = ttree.build_prefix_tree(lex, tying, topo, trans, **kw)
+
+
+def _assert_same_tree(got, want, lookahead):
     for name in ARRAYS:
         a, b = getattr(got, name), getattr(want, name)
         if b is None:
@@ -52,6 +53,35 @@ def test_prefix_tree_equals_reference(lookahead, skip_scope, states):
     assert [l.primary_orth for l in got.lemmas] == [l.primary_orth for l in want.lemmas]
     assert got.stats() == want.stats()
     assert (got.lookahead is not None) == lookahead
+
+
+@pytest.mark.parametrize("lookahead", [False, True])
+@pytest.mark.parametrize("skip_scope,states", [("word", 3), ("phone", 3), ("word", 1)])
+def test_prefix_tree_equals_reference(lookahead, skip_scope, states):
+    lex, topo, tying, lm = _setup(states)
+    trans = _transitions(Tdp, TransitionModel)
+    uni = {w: lm.score((), w) for w in lm.vocab.values()} if lookahead else None
+    kw = dict(lm_vocab=lm.vocab, lm_unigrams=uni, skip_scope=skip_scope)
+    want = jtree.build_prefix_tree(lex, tying, topo, trans, **kw)
+    got = ttree.build_prefix_tree(lex, tying, topo, trans, **kw)
+    _assert_same_tree(got, want, lookahead)
+
+
+@pytest.mark.parametrize("states", [1, 3])
+def test_prefix_tree_from_port_host_objects(states):
+    """The port's tree over the port's own lexicon, topology, tying,
+    transitions and LM equals the reference tree over the reference's."""
+    lex, topo, tying, lm = _setup(states)
+    want = jtree.build_prefix_tree(
+        lex, tying, topo, _transitions(Tdp, TransitionModel), lm_vocab=lm.vocab,
+        lm_unigrams={w: lm.score((), w) for w in lm.vocab.values()})
+    lex, topo, tying, lm = _setup(states, tlexicon.Lexicon, tlexicon.build_default_silence,
+                                  thmm.HmmTopology, ttying.MonophoneStateTying, tarpa.NgramLm)
+    got = ttree.build_prefix_tree(
+        lex, tying, topo, _transitions(thmm.Tdp, thmm.TransitionModel), lm_vocab=lm.vocab,
+        lm_unigrams={w: lm.score((), w) for w in lm.vocab.values()})
+    assert type(got.lemmas[0]) is tlexicon.Lemma
+    _assert_same_tree(got, want, True)
 
 
 def test_no_lm_vocab_and_across_word():
