@@ -11,16 +11,22 @@ counters set to 0 just before it and read just after:
 - the word-end and row-gather microbenches
   (``rasr_tpu_torch.examples.wordend_microbench`` / ``gather_microbench``),
   which time their kernel against its plain version;
-- the planted two-word canary under both of bench.py's canary configs;
+- the planted two-word canary under both of bench.py's canary configs,
+  on the within-word tree and on the across-word network;
 - the main path: batches of synthetic 10 s audio through the full-width
   benchmark setup (5k words, 2000 x 8 x 45 GMMs, K=1024) under bench.py's
   production beam (root select 512, deferred emission, root-arc cap 160),
   ``FeatureFrontend -> GmmFeatureScorer -> decode_scores_device ->
   results_from_device``;
-- the same setup under decoder slice A's beam, at reduced depth.
+- the same setup under decoder slice A's beam, at reduced depth;
+- the across-word path: the same pipeline and beam at full width over the
+  across-word network of a tying with 4 context groups, with word-set
+  bigram lookahead and compact branch slots (one warm-up, one timed batch);
+- the 4-gram path: a 4-gram LM with trigram lookahead under survivor
+  updates, word-scope skips and compact slots, at B=16 (one timed batch).
 
-A small batch decoded on the card and on the CPU must agree under both
-beams. Prints per-stage times tagged with the card's name and power
+A small batch decoded on the card and on the CPU must agree on every
+path. Prints per-stage times tagged with the card's name and power
 limit, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs a CUDA card and the
@@ -47,6 +53,9 @@ DECODE_RTOL = 1e-2
 
 BATCH, AUDIO_S, TIMED_BATCHES = 64, 10.0, 2
 SLICE_A_BATCH = 16  # slice A at reduced depth: one timed batch
+#: the slice-C paths (``synthetic.PATHS``): batch, and whether a full
+#: warm-up batch precedes the timed one (else a 1-s one)
+SLICE_C = {"across-word": (BATCH, True), "4-gram": (16, False)}
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -128,7 +137,7 @@ def main() -> int:
     from rasr_tpu_torch.ops.kernels.wordend import WORD_NONE, wordend_block, wordend_block_plain
     from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
     from rasr_tpu_torch.search.tree import build_prefix_tree
-    from rasr_tpu_torch.synthetic import SLICE_A_BEAM, build_setup
+    from rasr_tpu_torch.synthetic import PATHS, SLICE_A_BEAM, build_setup
 
     dev = cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,25 +343,31 @@ def main() -> int:
     emis = np.full((1, len(seq), tying.num_classes), 50.0, np.float32)
     for t, c in enumerate(seq):
         emis[0, t, c] = 0.0
-    for canary_beam in (  # bench.py:332-337
-        BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5),
-        BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5, root_hyps=4, root_select=8,
-                   root_arc_limit=2, branch_hyps=16, deferred_emission=True),
-    ):
-        dec = TreeDecoder(tree, compile_ngram(lm), canary_beam, device=dev)
-        (res,) = dec.decode_scores(torch.from_numpy(emis).to(dev), np.array([len(seq)]))
-        got_words = [lemma.primary_orth for lemma in res.lemmas]
-        if got_words != ["[SILENCE]", "AB"] or res.word_ends != [1, 5]:
-            raise AssertionError(f"planted canary ({canary_beam}): {got_words} @ {res.word_ends}")
-    say("canary ok: [SILENCE] AB @ [1, 5] (plain + rsel/defer/caps)")
+    # the across-word network of the same lexicon: the monophone tying
+    # collapses its contexts, so it reads the same
+    across = build_prefix_tree(lex, tying, topo, TransitionModel(), lm_vocab=lm.vocab,
+                               across_word=True)
+    for net in (tree, across):
+        for canary_beam in (  # bench.py:332-337
+            BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5),
+            BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5, root_hyps=4,
+                       root_select=8, root_arc_limit=2, branch_hyps=16, deferred_emission=True),
+        ):
+            dec = TreeDecoder(net, compile_ngram(lm), canary_beam, device=dev)
+            (res,) = dec.decode_scores(torch.from_numpy(emis).to(dev), np.array([len(seq)]))
+            got_words = [lemma.primary_orth for lemma in res.lemmas]
+            if got_words != ["[SILENCE]", "AB"] or res.word_ends != [1, 5]:
+                raise AssertionError(f"planted canary ({net.num_final_states} final states, "
+                                     f"{canary_beam}): {got_words} @ {res.word_ends}")
+    say("canary ok: [SILENCE] AB @ [1, 5] (plain + rsel/defer/caps; within-word + across-word)")
 
     # ------------------------------------------------------ decode paths
-    def run_batch(decoder, x, n):
+    def run_batch(decoder, x, n, su=s):
         t_a = time.time()
-        f, nf = s.frontend(x, n)
+        f, nf = su.frontend(x, n)
         torch.cuda.synchronize()
         t_b = time.time()
-        e = s.scorer(f)
+        e = su.scorer(f)
         torch.cuda.synchronize()
         t_c = time.time()
         results = decoder.results_from_device(decoder.decode_scores_device(e, nf))
@@ -405,7 +420,37 @@ def main() -> int:
     report("slice A", stage, 1, SLICE_A_BATCH, launches_a)
     del f, e, results
 
-    # ------------------------- CUDA decode == CPU decode, both beams
+    # --------- slice C: the across-word network, the 4-gram LM, lookahead
+    c_setups = {}
+    for label, (B_, full_warmup) in SLICE_C.items():
+        t0 = time.time()
+        sc = build_setup(device=dev, **PATHS[label])
+        setup_s = time.time() - t0
+        bla = sc.bigram_la
+        say(f"{label} setup {setup_s:.1f} s: network {sc.tree.num_states} states, max branch "
+            f"degree {sc.decoder.tables.branch_degree}, wmax {sc.tree.max_word_ends}, "
+            f"{sc.decoder.lm.num_states} LM states, branch_width {sc.beam.branch_width}, "
+            f"lookahead update {sc.beam.lookahead_update!r}; lookahead {bla.num_subtrees} "
+            f"nodes, {bla.num_classes} classes, corr table {bla.corr.nbytes / 1e6:.1f} MB"
+            f"{'' if bla.dpair is None else f', dpair {bla.dpair.nbytes / 1e6:.1f} MB'}")
+        xc, nc = samples[:B_], lengths[:B_]
+        if full_warmup:
+            run_batch(sc.decoder, xc, nc, sc)
+        else:
+            run_batch(sc.decoder, xc[:, :16000], torch.full_like(nc, 16000), sc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        f, e, nf, results, stage = run_batch(sc.decoder, xc, nc, sc)
+        counts = read_counts(f"{label} path", gmm_scores, mfcc_frames)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check_outputs(f, e, nf, results, B_)
+        report(f"{label} path", stage, 1, B_, counts, peak)
+        say(f"{label} sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
+        c_setups[label] = sc
+        del f, e, results
+
+    # --------------------- CUDA decode == CPU decode, every beam and path
     small = int(3.0 * 16000)
     x2 = samples[:2, :small]
     f2, nf2 = s.frontend(x2, torch.full((2,), small, device=dev))
@@ -416,15 +461,23 @@ def main() -> int:
     check_close("emissions cuda vs cpu", e2.cpu(), s_cpu.scorer(f2c), 1e-4, 1e-2)
     dec_a_cpu = TreeDecoder(s_cpu.tree, compile_ngram(s_cpu.lm), SLICE_A_BEAM,
                             device="cpu")
-    for label, on_dev, on_host in (("production", s.decoder, s_cpu.decoder),
-                                   ("slice A", dec_a, dec_a_cpu)):
-        on_card = on_dev.decode_scores(e2, nf2)
-        on_cpu = on_host.decode_scores(e2.cpu(), nf2.cpu())
+    pairs = [("production", s.decoder, s_cpu.decoder, e2, nf2),
+             ("slice A", dec_a, dec_a_cpu, e2, nf2)]
+    for label, sc in c_setups.items():
+        # the path's network, LM and lookahead, built once, decoded on the
+        # CPU too (the 4-gram setup draws other GMMs: its own scores)
+        fc, nfc = sc.frontend(x2, torch.full((2,), small, device=dev))
+        pairs.append((label, sc.decoder, TreeDecoder(
+            sc.tree, compile_ngram(sc.lm), sc.beam, bigram_la=sc.bigram_la, device="cpu"),
+            sc.scorer(fc), nfc))
+    for label, on_dev, on_host, e_, nf_ in pairs:
+        on_card = on_dev.decode_scores(e_, nf_)
+        on_cpu = on_host.decode_scores(e_.cpu(), nf_.cpu())
         for a, b in zip(on_card, on_cpu):
             if a.words != b.words or abs(a.score - b.score) > DECODE_RTOL * max(1.0, abs(b.score)):
                 raise AssertionError(
                     f"cuda vs cpu decode ({label}): {a.words} {a.score} vs {b.words} {b.score}")
-        say(f"cuda == cpu decode ({label} beam) on B=2 x 3 s: {[r.orth[:40] for r in on_card]}")
+        say(f"cuda == cpu decode ({label}) on B=2 x 3 s: {[r.orth[:40] for r in on_card]}")
 
     record = {"kernels": [
         {"name": "gmm_scores", "route": "cuda", "source": "rasr_tpu_torch/csrc/gmm_fused.cu",

@@ -18,7 +18,7 @@ from .device import resolve
 from .models.gmm import ScoringTensors
 from .models.lm.ngram import NgramTables
 from .ops.frontend import FrontendParams
-from .search.decoder import TreeTables
+from .search.decoder import BigramTables, TreeTables
 
 def _tensor(x, device, index: bool = False) -> torch.Tensor:
     a = np.array(x)  # a writable host copy of the (read-only) JAX buffer
@@ -53,16 +53,29 @@ def ngram_tables_from_jax(tables, device=None) -> NgramTables:
     return NgramTables(**fields)
 
 
-def tree_tables_from_jax(tables, device=None) -> TreeTables:
-    """``rasr_tpu.search.decoder.TreeTables`` -> the port's (index
-    columns widen to int64)."""
+def _tables_from_jax(cls, tables, device):
+    """A JAX table pytree -> the port's dataclass ``cls`` of the same
+    fields (index columns widen to int64; None stays None)."""
     fields = {}
-    for f in dataclasses.fields(TreeTables):
+    for f in dataclasses.fields(cls):
         v = getattr(tables, f.name)
         if f.type in ("int", int):
             fields[f.name] = int(v)
         elif f.type in ("bool", bool):
             fields[f.name] = bool(v)
         else:
-            fields[f.name] = _tensor(v, device, index=True)
-    return TreeTables(**fields)
+            fields[f.name] = None if v is None else _tensor(v, device, index=True)
+    return cls(**fields)
+
+
+def tree_tables_from_jax(tables, device=None) -> TreeTables:
+    """``rasr_tpu.search.decoder.TreeTables`` -> the port's (either
+    network: the across-word one's ``we_next`` re-entries included)."""
+    return _tables_from_jax(TreeTables, tables, device)
+
+
+def bigram_tables_from_jax(tables, device=None) -> BigramTables:
+    """``rasr_tpu.search.decoder.BigramTables`` -> the port's (pass it as
+    ``TreeDecoder(bigram_la=...)`` to decode on the JAX decoder's own
+    lookahead tables)."""
+    return _tables_from_jax(BigramTables, tables, device)

@@ -1,7 +1,12 @@
 """Profile the port's decoder frame loop on one CUDA card.
 
-Builds the benchmark setup (``rasr_tpu_torch.synthetic.build_setup``) on
-the card, scores ``BATCH`` = 64 utterances of 10 s of noise, decodes their
+Builds the benchmark setup (``rasr_tpu_torch.synthetic.build_setup``) of
+one decode path on the card: ``production`` (the headline network), or
+one of ``synthetic.PATHS`` (``across-word``: the across-word network with
+4 context groups, bigram lookahead and compact branch slots; ``4-gram``:
+a 4-gram LM, trigram lookahead under survivor updates, word-scope skips
+and compact slots). Scores ``BATCH`` = 64 utterances (16 on the 4-gram
+path, as ``chip_smoke.py`` runs it) of 10 s of noise, decodes their
 ``FRAMES`` = 998 frames once to warm up and once timed on the host clock
 (ending in a synchronize), then their first ``PROFILE_FRAMES`` = 50 frames
 under ``torch.profiler``. Prints one JSON line: wall ms per frame of the
@@ -10,7 +15,7 @@ timed decode, and of the profiled window kernel launches per frame
 and copy durations), the device's busy share, and the kernels that take
 most device time:
 
-    python -m rasr_tpu_torch.examples.profile_decode [--beam slice_a]
+    python -m rasr_tpu_torch.examples.profile_decode [--path across-word] [--beam slice_a]
 
 The counterpart of ``examples/profile_decode.py`` (the JAX package's HLO
 profile).
@@ -28,10 +33,11 @@ import numpy as np
 import torch
 
 from ..device import cuda_device
-from ..synthetic import PRODUCTION_BEAM, SLICE_A_BEAM, build_setup
+from ..synthetic import PATHS, PRODUCTION_BEAM, SLICE_A_BEAM, build_setup
 
 BEAMS = {"production": PRODUCTION_BEAM, "slice_a": SLICE_A_BEAM}
 BATCH, FRAMES, PROFILE_FRAMES, TOP = 64, 998, 50, 12
+BATCH_OF_PATH = {"4-gram": 16}
 
 
 def _busy_us(intervals) -> float:
@@ -44,20 +50,23 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def profile(device, beam: str) -> dict:
+def profile(device, beam: str, path: str = "production") -> dict:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the profile times a CUDA card, got {device}")
-    s = build_setup(device=device, beam=BEAMS[beam])
+    t0 = time.perf_counter()
+    s = build_setup(device=device, beam=BEAMS[beam], **PATHS.get(path, {}))
+    setup_s = time.perf_counter() - t0
+    B = BATCH_OF_PATH.get(path, BATCH)
     samples = (FRAMES + 3) * 160 + 400  # 10 ms shift, 25 ms window: >= FRAMES frames
     rng = np.random.default_rng(1)
-    x = torch.from_numpy((rng.normal(size=(BATCH, samples)) * 0.1).astype(np.float32)).to(device)
-    feats, _ = s.frontend(x, torch.full((BATCH,), samples, device=device))
+    x = torch.from_numpy((rng.normal(size=(B, samples)) * 0.1).astype(np.float32)).to(device)
+    feats, _ = s.frontend(x, torch.full((B,), samples, device=device))
     emis = s.scorer(feats)[:, :FRAMES].contiguous()
 
     def decode(f):
         out = s.decoder.decode_scores_device(
-            emis[:, :f], torch.full((BATCH,), f, dtype=torch.int64, device=device))
+            emis[:, :f], torch.full((B,), f, dtype=torch.int64, device=device))
         torch.cuda.synchronize()
         return out
 
@@ -79,7 +88,9 @@ def profile(device, beam: str) -> dict:
         by_name[ev.name] += ev.time_range.elapsed_us()
     device_us = sum(by_name.values())
     return {
-        "beam": beam, "batch": BATCH, "frames": FRAMES, "profile_frames": PROFILE_FRAMES,
+        "path": path, "beam": beam, "batch": B, "frames": FRAMES,
+        "profile_frames": PROFILE_FRAMES, "setup_s": setup_s,
+        "states": s.tree.num_states, "branch_width": s.beam.branch_width,
         "wall_ms_per_frame": wall_ms / FRAMES,
         "profiled_wall_ms_per_frame": window_us / 1e3 / PROFILE_FRAMES,
         "launches_per_frame": len(kernels) / PROFILE_FRAMES,
@@ -94,8 +105,10 @@ def profile(device, beam: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=["production", *PATHS], default="production")
     ap.add_argument("--beam", choices=sorted(BEAMS), default="production")
-    out = profile(cuda_device(), ap.parse_args(argv).beam)
+    args = ap.parse_args(argv)
+    out = profile(cuda_device(), args.beam, args.path)
     if not out["launches_per_frame"]:
         raise RuntimeError("the profiler saw no device kernels")
     print(json.dumps(out))

@@ -1,34 +1,49 @@
 """Vectorized frame-synchronous beam search over the prefix tree, in PyTorch.
 
-Counterpart of ``rasr_tpu/search/decoder.py`` (slices A and B: the
-within-word network, unigram LM lookahead, the dense branch fan, an
-n-gram LM in hash tables, and the pruning options ``root_arc_limit``,
-``root_select``, ``deferred_emission``, ``expansion_limit`` and
-``word_end_rank_lm``). A hypothesis is a dense slot ``(tree_state,
-lm_state, score, bp)``; per frame, batched over utterances:
+Counterpart of ``rasr_tpu/search/decoder.py`` on one device: the
+within-word and the across-word network (context-conditioned roots,
+word ends re-entering at ``we_next``, two final states), unigram LM
+lookahead and the history-conditioned bigram / trigram lookahead of
+``search/lookahead.py`` (``lookahead_update`` "arc" or "survivor"), the
+dense or the compact (``branch_width``) branch fan, an n-gram LM in hash
+tables, and the pruning options ``root_arc_limit``, ``root_select``,
+``deferred_emission``, ``expansion_limit`` and ``word_end_rank_lm``. A
+hypothesis is a dense slot ``(tree_state, lm_state, score, bp)`` (plus
+its applied lookahead correction ``phi`` under a bigram lookahead); per
+frame, batched over utterances:
 
 1. expansion: self loop, the two dense arcs, the branch fan of the top
-   ``branch_hyps`` hypotheses at fan-out states, and the root fan-out of
-   the top ``root_hyps`` hypotheses at the root (all G arcs for the
-   best, the first ``root_arc_limit`` for the others); with
-   ``root_select`` the root fan-out is cut to its R3 best by
-   pre-emission score and kept out of steps 3-4;
+   ``branch_hyps`` hypotheses at fan-out states (every overflow arc of
+   each, or with ``branch_width`` their arcs packed best hypothesis
+   first into that many slots), and the root fan-out of the top
+   ``root_hyps`` hypotheses at the root (all G arcs for the best, the
+   first ``root_arc_limit`` for the others); with ``root_select`` the
+   root fan-out is cut to its R3 best by pre-emission score and kept out
+   of steps 3-4. A bigram lookahead adds its class-conditioned
+   correction at the root fan-out and, at word-set granularity under
+   "arc" updates, the node-crossing delta of every dense and branch arc;
 2. the frame's emission score of each candidate's destination state
    (of the top ``expansion_limit`` only; or, with ``deferred_emission``,
    of the K + R3 survivors after step 4);
 3. the acoustic beam;
 4. exact recombination by (tree_state, lm_state), keeping each key's
    best score, then histogram top-K;
-5. word ends over the beam plus the root-select survivors: pre-LM top-R
-   (slot index breaks ties; ranked with a static unigram bias under
+5. word ends over the beam plus the root-select survivors (under
+   "survivor" updates their correction is first refreshed to their
+   current node's): the correction undone, pre-LM top-R (slot index
+   breaks ties; ranked with a static unigram bias under
    ``word_end_rank_lm``), the LM lookup, the word-end beam, traceback
-   records and root re-entry;
+   records and re-entry at the word end's root;
 6. top-K over the K + R3 slots plus the R re-entries;
 7. utterances past their ``n_frames`` freeze, and each utterance's
    final beam is captured at ``t == n_frames - 1``.
 
 The semantics are the reference's, not its TPU layouts: no int32 bit
-carriers, no quarter-row gathers, no sort widths padded to powers of 2.
+carriers, no riding state rows or (bp, class) payload packing, no
+quarter-row gathers, no sort widths padded to powers of 2; the history
+class of a hypothesis is looked up from its LM state (it is a function
+of it) where the reference carries it.
+
 Every selection is a STABLE sort, so ties break by lowest index as
 ``lax.top_k`` does, and a CPU and a CUDA decode of the same scores pick
 the same hypotheses. The recombination key is ``state * L + lm`` in
@@ -95,12 +110,83 @@ class TreeTables:
         return self.num_states
 
     def to(self, device) -> "TreeTables":
-        arrays = {
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        }
-        return dataclasses.replace(self, **arrays)
+        return _tensors_to(self, device)
+
+
+def _tensors_to(tables, device):
+    """A copy of a frozen table dataclass with every tensor on ``device``."""
+    arrays = {
+        f.name: getattr(tables, f.name).to(device)
+        for f in dataclasses.fields(tables)
+        if isinstance(getattr(tables, f.name), torch.Tensor)
+    }
+    return dataclasses.replace(tables, **arrays)
+
+
+@dataclasses.dataclass(frozen=True)
+class BigramTables:
+    """The bigram-lookahead tables of ``search/lookahead.py`` as tensors.
+
+    ``sub[s]`` in ``[0, num_subtrees]`` is the lookahead node of state s
+    (the sentinel ``num_subtrees``, whose ``corr`` column is zero, for the
+    roots and the padding state); ``corr`` is unscaled (the decoder
+    folds ``lm_scale * lookahead_scale * lookahead_corr_scale`` in).
+    Word-set granularity also carries the node-crossing deltas: ``pair1``
+    / ``pair2`` (the dense arc slots, per state) and ``pair_br`` (branch
+    CSR order) index columns of ``dpair`` (column 0 is zeros: no
+    crossing); all None at first-phone granularity, where every
+    within-word delta is zero."""
+
+    sub: torch.Tensor  # [S+1] i64
+    cls_of_lm: torch.Tensor  # [L] i64
+    corr: torch.Tensor  # [C, num_subtrees + 1] f32
+    pair1: Optional[torch.Tensor]  # [S+1] i64
+    pair2: Optional[torch.Tensor]  # [S+1] i64
+    pair_br: Optional[torch.Tensor]  # [A'] i64
+    dpair: Optional[torch.Tensor]  # [C, P + 1] f32
+    num_subtrees: int
+    num_classes: int
+    #: general (WFST) networks re-enter at junction states whose node
+    #: correction must be added back; the port does not run them
+    reentry: bool = False
+
+    @property
+    def deep(self) -> bool:
+        return self.dpair is not None
+
+    def to(self, device) -> "BigramTables":
+        return _tensors_to(self, device)
+
+
+def bigram_to_device(bla, tree: PrefixTree, device=None) -> BigramTables:
+    """Host ``BigramLookahead`` -> tables (+ the sentinel state's row; the
+    arcs' pair ids split into the decoder's dense and branch slots)."""
+    device = resolve(device)
+    N = bla.corr.shape[1] - 1
+    S = tree.num_states
+    sub = np.concatenate([bla.sub_state, [N]]).astype(np.int64)
+    if sub.shape[0] != S + 1:
+        raise ValueError(f"lookahead of {sub.shape[0] - 1} states for a network of {S}")
+    pairs = dict(pair1=None, pair2=None, pair_br=None, dpair=None)
+    if bla.deep:
+        src, m1, m2, mbr = _arc_slot_split(tree)
+        p1 = np.zeros(S + 1, np.int64)
+        p2 = np.zeros(S + 1, np.int64)
+        p1[src[m1]] = bla.arc_pair[m1]
+        p2[src[m2]] = bla.arc_pair[m2]
+        br = bla.arc_pair[mbr].astype(np.int64)
+        if br.size == 0:
+            br = np.zeros(1, np.int64)  # placeholder row (see tree_to_device)
+        pairs = dict(pair1=p1, pair2=p2, pair_br=br, dpair=bla.dpair.astype(np.float32))
+    return BigramTables(
+        sub=torch.as_tensor(sub, device=device),
+        cls_of_lm=torch.as_tensor(np.asarray(bla.state_class, np.int64), device=device),
+        corr=torch.as_tensor(np.asarray(bla.corr, np.float32), device=device),
+        **{k: None if v is None else torch.as_tensor(v, device=device) for k, v in pairs.items()},
+        num_subtrees=N,
+        num_classes=int(bla.corr.shape[0]),
+        reentry=bool(getattr(bla, "reentry", False)),
+    )
 
 
 def _arc_slot_split(tree: PrefixTree):
@@ -216,11 +302,9 @@ def tree_to_device(tree: PrefixTree, device=None) -> TreeTables:
 class BeamConfig:
     """Pruning parameters (same fields as the reference's BeamConfig).
 
-    Options of the reference's decoder slice C raise
-    ``NotImplementedError`` in :class:`TreeDecoder`: ``branch_width`` and
-    ``lookahead_update="survivor"``. ``scan_unroll`` has no meaning here
-    (PyTorch runs the frame loop eagerly) and ``force_unpacked_keys``
-    selects the two-sort recombination, whose results are identical."""
+    ``scan_unroll`` has no meaning here (PyTorch runs the frame loop
+    eagerly) and ``force_unpacked_keys`` selects the two-sort
+    recombination, whose results are identical."""
 
     max_hyps: int = 1024  # histogram pruning cap (K)
     beam: float = 1e9  # acoustic beam width
@@ -232,6 +316,11 @@ class BeamConfig:
     word_end_rank_lm: bool = False
     root_hyps: int = 32  # H: root (re-entry) hyps expanded per frame
     branch_hyps: int = 0  # Kb: hyps expanded through branch arcs (0 = K)
+    #: Wb: compact branch expansion, the Kb hyps' overflow arcs packed
+    #: contiguously (best hyp first) into Wb slots per utterance instead
+    #: of the padded [Kb, max degree] fan; overflow drops the worst
+    #: selected hyps' arcs, Wb >= Kb * max degree is the dense fan's
+    #: candidate set (0 = the dense fan)
     branch_width: int = 0
     #: E: keep the E best candidates by pre-emission score before the
     #: emission gather (0 = off; ignored under ``deferred_emission``)
@@ -249,21 +338,16 @@ class BeamConfig:
     #: weight of the unigram lookahead potential (x lm_scale); exact
     #: potential shaping: path scores unchanged, pruning LM-aware
     lookahead_scale: float = 1.0
+    #: extra weight on the bigram / trigram correction level only
     lookahead_corr_scale: float = 1.0
+    #: word-set lookahead correction updates: "arc" (exact: every dense
+    #: and branch candidate adds its node-crossing delta) or "survivor"
+    #: (the reference's lazy activation: candidates keep their source
+    #: node's correction, refreshed once per frame for the K + R3
+    #: survivors; not exact)
     lookahead_update: str = "arc"
     scan_unroll: int = 1
     force_unpacked_keys: bool = False
-
-
-_NOT_PORTED = (("branch_width", 0), ("lookahead_update", "arc"))
-
-
-def _check_ported(cfg: BeamConfig) -> None:
-    for name, default in _NOT_PORTED:
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"BeamConfig.{name}={getattr(cfg, name)!r} is not ported yet"
-            )
 
 
 def _stable_order(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -297,6 +381,9 @@ class Carry(NamedTuple):
     flm: torch.Tensor
     fscore: torch.Tensor
     fbp: torch.Tensor
+    #: [B, K] f32 lookahead correction applied to each slot's score (the
+    #: word ends undo it; zeros without a bigram lookahead)
+    phi: torch.Tensor
 
 
 class Records(NamedTuple):
@@ -319,7 +406,8 @@ def init_carry(B: int, cfg: BeamConfig, lm: NgramTables, device) -> Carry:
     score0 = torch.full((B, K), BIG, dtype=torch.float32, device=device)
     score0[:, 0] = 0.0
     bp0 = torch.full((B, K), -1, dtype=torch.int64, device=device)
-    return Carry(state0, lm0, score0, bp0, state0, lm0, score0, bp0)
+    phi0 = torch.zeros((B, K), dtype=torch.float32, device=device)  # phi(root) = 0
+    return Carry(state0, lm0, score0, bp0, state0, lm0, score0, bp0, phi0)
 
 
 class _Step:
@@ -327,7 +415,8 @@ class _Step:
     decode: the shaped cost columns are loop-invariant)."""
 
     def __init__(self, tree: TreeTables, lm: NgramTables, prep: LookupTables,
-                 cfg: BeamConfig, wmax: int, hroot: int, kbranch: int):
+                 cfg: BeamConfig, wmax: int, hroot: int, kbranch: int,
+                 bla: Optional[BigramTables] = None):
         self.tree, self.lm, self.prep, self.cfg = tree, lm, prep, cfg
         self.wmax, self.hroot, self.kbranch = wmax, hroot, kbranch
         use_la = tree.has_lookahead and cfg.lookahead_scale != 0.0
@@ -344,11 +433,24 @@ class _Step:
         self.gcap = min(cfg.root_arc_limit or G, G)
         root_width = G + max(hroot - 1, 0) * self.gcap  # Wr
         self.rsel = min(cfg.root_select, root_width) if cfg.root_select > 0 else 0  # R3
-        cand_width = 3 * cfg.max_hyps + kbranch * tree.branch_degree + (
-            0 if self.rsel else root_width
-        )
+        self.compact = cfg.branch_width > 0
+        Wbr = cfg.branch_width if self.compact else kbranch * tree.branch_degree
+        cand_width = 3 * cfg.max_hyps + Wbr + (0 if self.rsel else root_width)
         E = cfg.expansion_limit
         self.elimit = E if 0 < E < cand_width and not cfg.deferred_emission else 0
+
+        # bigram lookahead: the class-conditioned correction, scaled once;
+        # the root fan-out's per-(class, arc) corrections pre-selected in
+        # the fan's static promise order
+        corr_coeff = la_coeff * cfg.lookahead_corr_scale
+        self.bla = bla if bla is not None and corr_coeff != 0.0 else None
+        self.lazy = self.bla is not None and bla.deep and cfg.lookahead_update == "survivor"
+        self.deep_arc = self.bla is not None and bla.deep and not self.lazy
+        if self.bla is not None:
+            self.corr = corr_coeff * bla.corr  # [C, N+1]
+            self.corr_arc = self.corr[:, bla.sub[tree.root_dst]]  # [C, G]
+        if self.deep_arc:
+            self.dpair = corr_coeff * bla.dpair  # [C, P+1]
 
         # word-end columns [S+1, W]. The unigram-potential undo at word
         # ends is a per-state constant -la_coeff * (la[s] - la[root]),
@@ -370,7 +472,9 @@ class _Step:
                 we = {k: v.gather(1, order) for k, v in we.items()}
         self.we = we
         self.br_ptr = tree.branch_ptr[:-1]
-        self.slots = torch.arange(tree.branch_degree, device=tree.la.device)
+        self.slots = torch.arange(
+            cfg.branch_width if self.compact else tree.branch_degree, device=tree.la.device
+        )
         self.L = lm.num_states
         self.pack_keys = (
             (tree.sentinel + 1) * self.L < 2**31 and not cfg.force_unpacked_keys
@@ -392,11 +496,59 @@ class _Step:
         top = _stable_order(dscore, k)
         return order.gather(1, top), dscore.gather(1, top)
 
-    def _root_fanout(self, state, lms, score, bp):
+    def _branch_fan(self, state, score, hyp_cols, cls):
+        """The branch fan of the top-Kb hyps at fan-out states: per
+        hypothesis every overflow arc (the dense ``[Kb, Db]`` fan,
+        flattened), or with ``branch_width`` the arcs packed contiguously
+        best hypothesis first into the slot budget (exclusive cumsum of
+        the live hyps' degrees; pruned hyps take no slots, unused slots
+        are the sentinel at BIG). Returns the ``[B, W]`` destination
+        states, their emission classes, pre-emission scores, the
+        correction deltas (None unless arc-exact word-set lookahead) and
+        each ``hyp_cols`` column per slot."""
+        tree, Kb = self.tree, self.kbranch
+        B = state.shape[0]
+        br_sel = torch.where(tree.branch_deg[state] > 0, score, BIG)
+        bidx = _stable_order(br_sel, Kb)
+        b_score = br_sel.gather(1, bidx)
+        b_state = state.gather(1, bidx)
+        b_deg, b_ptr = tree.branch_deg[b_state], self.br_ptr[b_state]
+        if self.compact:
+            deg = torch.where(b_score < BIG / 2, b_deg, 0)
+            off = torch.cumsum(deg, dim=1) - deg  # [B, Kb], non-decreasing
+            slots = self.slots.expand(B, -1).contiguous()
+            hh = torch.clamp(torch.searchsorted(off, slots, right=True) - 1, 0, Kb - 1)
+            pos = slots - off.gather(1, hh)
+            ok = (pos >= 0) & (pos < deg.gather(1, hh))
+            arc = torch.where(ok, b_ptr.gather(1, hh) + pos, 0)
+
+            def per_slot(x):  # [B, Kb] -> [B, Wb]
+                return x.gather(1, hh)
+        else:
+            Db = tree.branch_degree
+            ok = (self.slots < b_deg[..., None]).reshape(B, -1)
+            arc = torch.where(ok, (b_ptr[..., None] + self.slots).reshape(B, -1), 0)
+
+            def per_slot(x):  # [B, Kb] -> [B, Kb * Db]
+                return x.repeat_interleave(Db, dim=1)
+        cost = torch.where(ok, self.br_cost[arc], BIG)
+        dphi = None
+        if self.deep_arc:
+            dphi = self.dpair[per_slot(cls.gather(1, bidx)),
+                              torch.where(ok, self.bla.pair_br[arc], 0)]
+            cost = cost + dphi
+        p_br = per_slot(b_score) + cost
+        br_state = torch.where(ok, tree.branch_dst[arc], tree.sentinel)
+        br_cls = torch.where(ok, tree.branch_cls[arc], 0)
+        return br_state, br_cls, p_br, dphi, [per_slot(x.gather(1, bidx)) for x in hyp_cols]
+
+    def _root_fanout(self, state, lms, score, bp, cls):
         """Root re-entry: the best root hypothesis expands all G root arcs,
         the next H-1 only the first gcap (static promise order). Returns
-        the ``[B, Wr]`` pre-emission scores, destination states, their
-        emission classes, and the source LM states and backpointers."""
+        the ``[B, Wr]`` pre-emission scores (with the lookahead correction
+        of the hypothesis' class), destination states, their emission
+        classes, the source LM states and backpointers, and the applied
+        corrections (None without a bigram lookahead)."""
         tree, H, gcap = self.tree, self.hroot, self.gcap
         B, G = state.shape[0], tree.root_degree
         root_sel = torch.where(state == 0, score, BIG)
@@ -407,6 +559,14 @@ class _Step:
             h_score[:, :1] + self.root_cost,
             (h_score[:, 1:, None] + self.root_cost[:gcap]).reshape(B, (H - 1) * gcap),
         ], dim=1)
+        root_phi = None
+        if self.bla is not None:
+            h_cls = cls.gather(1, hidx)
+            root_phi = torch.cat([
+                self.corr_arc[h_cls[:, 0]],
+                self.corr_arc[:, :gcap][h_cls[:, 1:]].reshape(B, (H - 1) * gcap),
+            ], dim=1)
+            p_root = p_root + root_phi
 
         def fan(per_arc):  # [G] -> [B, Wr]
             return torch.cat([per_arc, per_arc[:gcap].repeat(H - 1)]).expand(B, -1)
@@ -415,16 +575,18 @@ class _Step:
             return torch.cat([h[:, :1].expand(B, G), h[:, 1:].repeat_interleave(gcap, dim=1)],
                              dim=1)
 
-        return p_root, fan(tree.root_dst), fan(tree.root_cls), per_hyp(h_lm), per_hyp(h_bp)
+        return (p_root, fan(tree.root_dst), fan(tree.root_cls), per_hyp(h_lm), per_hyp(h_bp),
+                root_phi)
 
     def __call__(self, c: Carry, emis_t: torch.Tensor, t: int,
                  n_frames: torch.Tensor, recs: Records) -> Carry:
-        tree, cfg = self.tree, self.cfg
+        tree, cfg, bla = self.tree, self.cfg, self.bla
         SENT = tree.sentinel
         K, R, L = cfg.max_hyps, cfg.word_end_limit, self.L
         B = c.state.shape[0]
         active = (t < n_frames)[:, None]
-        state, lms, score, bp = c.state, c.lms, c.score, c.bp
+        state, lms, score, bp, phi = c.state, c.lms, c.score, c.bp, c.phi
+        cls = bla.cls_of_lm[lms] if bla is not None else None  # history class
 
         def emis(cls):
             return emis_t.gather(1, cls)
@@ -436,26 +598,30 @@ class _Step:
         p_d1 = score + self.d1_cost[state]
         d2 = tree.dense2_dst[state]
         p_d2 = score + self.d2_cost[state]
+        phi_d1 = phi_d2 = phi
+        if self.deep_arc:
+            # word-set lookahead: each dense arc's node-crossing delta
+            dd1 = self.dpair[cls, bla.pair1[state]]
+            dd2 = self.dpair[cls, bla.pair2[state]]
+            p_d1, p_d2 = p_d1 + dd1, p_d2 + dd2
+            phi_d1, phi_d2 = phi + dd1, phi + dd2
 
-        # ---- branch fan: top-Kb hyps at fan-out states, Db arcs each
-        br_sel = torch.where(tree.branch_deg[state] > 0, score, BIG)
-        bidx = _stable_order(br_sel, self.kbranch)
-        b_score = br_sel.gather(1, bidx)
-        b_state = state.gather(1, bidx)
-        Db = tree.branch_degree
-        ok = self.slots < tree.branch_deg[b_state][..., None]  # [B,Kb,Db]
-        bi = torch.where(ok, self.br_ptr[b_state][..., None] + self.slots, 0)
-        br_state = torch.where(ok, tree.branch_dst[bi], SENT).reshape(B, -1)
-        br_cls = torch.where(ok, tree.branch_cls[bi], 0).reshape(B, -1)
-        p_br = (b_score[..., None] + torch.where(ok, self.br_cost[bi], BIG)).reshape(B, -1)
-        br_lm = lms.gather(1, bidx).repeat_interleave(Db, dim=1)
-        br_bp = bp.gather(1, bidx).repeat_interleave(Db, dim=1)
+        # ---- branch fan: top-Kb hyps at fan-out states
+        br_state, br_cls, p_br, br_dphi, br_hyp = self._branch_fan(
+            state, score, [lms, bp] + ([phi] if bla is not None else []), cls)
+        br_lm, br_bp = br_hyp[:2]
 
-        p_root, root_state, root_cls, root_lm, root_bp = self._root_fanout(state, lms, score, bp)
-        sections = [(state, lms, bp, p_loop, tree.emission_class[state]),
-                    (d1, lms, bp, p_d1, tree.dense1_cls[state]),
-                    (d2, lms, bp, p_d2, tree.dense2_cls[state]),
-                    (br_state, br_lm, br_bp, p_br, br_cls)]
+        p_root, root_state, root_cls, root_lm, root_bp, root_phi = self._root_fanout(
+            state, lms, score, bp, cls)
+        sections = [[state, lms, bp, p_loop, tree.emission_class[state]],
+                    [d1, lms, bp, p_d1, tree.dense1_cls[state]],
+                    [d2, lms, bp, p_d2, tree.dense2_cls[state]],
+                    [br_state, br_lm, br_bp, p_br, br_cls]]
+        if bla is not None:
+            # each candidate's applied correction rides beside it
+            br_phi = br_hyp[2] if br_dphi is None else br_hyp[2] + br_dphi
+            for sec, x in zip(sections, (phi, phi_d1, phi_d2, br_phi)):
+                sec.append(x)
         if self.rsel:
             # root select: pre-emission top-R3 over the root fan-out; the
             # survivors skip the recombination and join the word ends
@@ -470,8 +636,9 @@ class _Step:
                     rs_pre < BIG / 2, rs_pre + emis(root_cls.gather(1, rs_idx)), BIG
                 )
         else:
-            sections.append((root_state, root_lm, root_bp, p_root, root_cls))
-        cand_state, cand_lm, cand_bp, cand_pre, cand_cls = (
+            sections.append([root_state, root_lm, root_bp, p_root, root_cls]
+                            + ([root_phi] if bla is not None else []))
+        cand_state, cand_lm, cand_bp, cand_pre, cand_cls, *cand_phi = (
             torch.cat(cols, dim=1) for cols in zip(*sections)
         )
         cand_pre = torch.clamp(cand_pre, max=BIG)
@@ -483,8 +650,9 @@ class _Step:
             # expansion limit: top-E by pre-emission score, then the
             # emission for the E survivors only
             eidx = _stable_order(cand_pre, self.elimit)
-            cand_state, cand_lm, cand_bp, cand_pre, cand_cls = (
-                x.gather(1, eidx) for x in (cand_state, cand_lm, cand_bp, cand_pre, cand_cls)
+            cand_state, cand_lm, cand_bp, cand_pre, cand_cls, *cand_phi = (
+                x.gather(1, eidx) for x in (cand_state, cand_lm, cand_bp, cand_pre, cand_cls,
+                                            *cand_phi)
             )
             cand_score = torch.where(cand_pre < BIG / 2, cand_pre + emis(cand_cls), BIG)
         else:
@@ -497,13 +665,15 @@ class _Step:
             rs_score = torch.where(rs_score > best + cfg.beam, BIG, rs_score)
         cand_score = torch.where(cand_score > best + cfg.beam, BIG, cand_score)
 
-        # ---- recombination + histogram top-K
+        # ---- recombination + histogram top-K (the winner keeps its
+        # applied correction)
         sel, n_score = self._recombine_topk(
             cand_state * L + cand_lm, cand_score, min(K, cand_score.shape[1])
         )
         n_state = torch.where(n_score >= BIG / 2, SENT, cand_state.gather(1, sel))
         n_lm = cand_lm.gather(1, sel)
         n_bp = cand_bp.gather(1, sel)
+        n_phi = cand_phi[0].gather(1, sel) if bla is not None else None
 
         # ---- word ends scan the beam plus the root-select survivors
         if self.rsel:
@@ -512,19 +682,31 @@ class _Step:
             w_lm = torch.cat([n_lm, rs_lm], dim=1)
             w_score = torch.cat([n_score, rs_score], dim=1)
             w_bp = torch.cat([n_bp, rs_bp], dim=1)
+            if bla is not None:
+                n_phi = torch.cat([n_phi, root_phi.gather(1, rs_idx)], dim=1)
         else:
             w_state, w_lm, w_score, w_bp = n_state, n_lm, n_score, n_bp
+        w_phi = n_phi
+        if self.lazy:
+            # survivor update: each survivor takes its current node's
+            # correction, its score moving by (fresh - applied)
+            fresh = self.corr[bla.cls_of_lm[w_lm], bla.sub[w_state]]
+            w_score = torch.where(w_score < BIG / 2, w_score + (fresh - w_phi), w_score)
+            w_phi = fresh
         if cfg.deferred_emission:
             w_score = torch.where(
                 w_score < BIG / 2, w_score + emis(tree.emission_class[w_state]), BIG
             )
+        # the word ends see the score without the bigram correction (the
+        # unigram potential's undo is folded into the word-end costs)
+        we_base = w_score - w_phi if bla is not None else w_score
 
         # ---- pre-LM top-R (ties by slot index)
         W, we = self.wmax, self.we
         if W == 1:
             cost0 = we["cost"][:, 0] + we["bias"][:, 0] if self.rank_lm else we["cost"][:, 0]
             pre = torch.where(we["word"][w_state, 0] != WORD_NONE,
-                              w_score + cost0[w_state], BIG)
+                              we_base + cost0[w_state], BIG)
             ridx = _stable_order(pre, R)
             r_pre = pre.gather(1, ridx)
             r_src = w_state.gather(1, ridx)
@@ -539,13 +721,13 @@ class _Step:
                 return pre + we["bias"][idx] if self.rank_lm else pre
 
             pre0 = torch.where(we["word"][w_state, 0] != WORD_NONE,
-                               ranked(w_score, w_state, 0), BIG)
+                               ranked(we_base, w_state, 0), BIG)
             Rh = min(R, pre0.shape[1])
             hsel = _stable_order(pre0, Rh)
             s_r = w_state.gather(1, hsel)
             pre = torch.where(
                 we["word"][s_r] != WORD_NONE,
-                ranked(w_score.gather(1, hsel)[..., None], s_r), BIG,
+                ranked(we_base.gather(1, hsel)[..., None], s_r), BIG,
             ).reshape(B, Rh * W)
             ridx = _stable_order(pre, R)
             r_pre = pre.gather(1, ridx)
@@ -577,7 +759,8 @@ class _Step:
         re_state = torch.where(r_valid, r_next, SENT)
         re_score = torch.where(r_valid, r_score, BIG)
 
-        # ---- merge the word-end re-entries (and root-select survivors)
+        # ---- merge the word-end re-entries (and root-select survivors);
+        # a re-entry sits at a root, whose correction is 0
         m_score = torch.cat([w_score, re_score], dim=1)
         midx = _stable_order(m_score, K)
         f_score = m_score.gather(1, midx)
@@ -592,6 +775,9 @@ class _Step:
         lms = torch.where(active, f_lm, lms)
         score = torch.where(active, f_score, score)
         bp = torch.where(active, f_bp, bp)
+        if bla is not None:
+            f_phi = torch.cat([w_phi, torch.zeros_like(re_score)], dim=1).gather(1, midx)
+            phi = torch.where(active, f_phi, phi)
         is_last = (t == n_frames - 1)[:, None]
 
         recs.lemma[t] = torch.where(r_valid, r_lemma, -1)
@@ -606,6 +792,7 @@ class _Step:
             torch.where(is_last, lms, c.flm),
             torch.where(is_last, score, c.fscore),
             torch.where(is_last, bp, c.fbp),
+            phi,
         )
 
 
@@ -679,7 +866,11 @@ class TreeDecoder:
 
     ``tree`` supplies the lemmas and word-end shape; ``tables`` overrides
     the device tables compiled from it (e.g. carried across from the JAX
-    decoder by ``convert.tree_tables_from_jax``)."""
+    decoder by ``convert.tree_tables_from_jax``). ``bigram_la`` is a
+    ``search.lookahead.BigramLookahead`` or its :class:`BigramTables`
+    (e.g. from ``convert.bigram_tables_from_jax``); None = unigram-only
+    shaping. Lookaheads of general WFST networks (``reentry``) raise:
+    those networks (``search/wfst.py``) are not ported."""
 
     def __init__(
         self,
@@ -691,16 +882,22 @@ class TreeDecoder:
         device=None,
         tables: Optional[TreeTables] = None,
     ):
-        if bigram_la is not None:
-            raise NotImplementedError("bigram lookahead is not ported yet")
         if rnn_fusion is not None:
             raise NotImplementedError("RNN-LM fusion is not ported yet")
-        _check_ported(cfg)
+        if bigram_la is not None and bigram_la.reentry:
+            raise NotImplementedError(
+                "a lookahead with junction re-entries (general WFST networks, "
+                "search/wfst.py) is not ported yet"
+            )
         self.device = resolve(device)
         self.tree = tree
         self.tables = (
             tree_to_device(tree, self.device) if tables is None else tables.to(self.device)
         )
+        if bigram_la is None or isinstance(bigram_la, BigramTables):
+            self.bla = None if bigram_la is None else bigram_la.to(self.device)
+        else:
+            self.bla = bigram_to_device(bigram_la, tree, self.device)
         self.lm = lm_tables.to(self.device)
         self.lm_prep = prepare_lookup(self.lm)
         # word-end selection cannot exceed the number of candidates
@@ -736,7 +933,7 @@ class TreeDecoder:
         K, R = cfg.max_hyps, cfg.word_end_limit
         kbranch = min(cfg.branch_hyps or K, K)
         step = _Step(self.tables, self.lm, self.lm_prep, cfg, self.tree.max_word_ends,
-                     min(cfg.root_hyps, K), kbranch)
+                     min(cfg.root_hyps, K), kbranch, self.bla)
 
         def rec(dtype, fill):
             return torch.full((T, B, R), fill, dtype=dtype, device=self.device)

@@ -3,18 +3,27 @@
 :func:`build_setup` rebuilds ``bench.py``'s ``build_setup`` with the same
 seeds and the same order of random draws: a lexicon of random
 pronunciations over ``num_phones`` phones, a hashed pseudo-CART tying to
-``num_classes`` tied states, a random bigram LM with unigram lookahead,
+``num_classes`` tied states, a random n-gram LM with unigram lookahead,
 diagonal GMMs of ``densities`` densities each over ``feat_dim``-dim
 features, and a random LDA from 9 spliced 16-dim MFCC frames. At the
 defaults that is the benchmark's shape: 5k words, 40 phones, 2000 x 8 x
-45 GMMs, LDA 144 -> 45. The decoder gets ``bench.py``'s production beam,
+45 GMMs, LDA 144 -> 45, a bigram LM over the within-word network with
+phone-scope skips. The decoder gets ``bench.py``'s production beam,
 :data:`PRODUCTION_BEAM`; :data:`SLICE_A_BEAM` is the same beam without the
 slice-B pruning (root select, deferred emission, root-arc cap).
+
+Its keyword knobs are ``bench.py``'s environment knobs (``BENCH_LM_ORDER``,
+``BENCH_SKIP_SCOPE``, ``BENCH_ACROSS``, ``BENCH_CTX_GROUPS``,
+``BENCH_LA_ORDER``, ``BENCH_LA_CLASSES``, ``BENCH_LA_SMOOTH``,
+``BENCH_LA_UPDATE``, ``BENCH_BRANCH_WIDTH``) with their defaults, so at
+the defaults the network, LM and decode are the benchmark's headline
+ones.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -28,27 +37,39 @@ from .models.lm.ngram import compile_ngram
 from .models.scorer import GmmFeatureScorer
 from .ops.frontend import FeatureFrontend, FrontendConfig
 from .search.decoder import BeamConfig, TreeDecoder
+from .search.lookahead import BigramLookahead, build_bigram_lookahead
 from .search.tree import PrefixTree, build_prefix_tree
 
 
 class HashTying(StateTying):
     """Pseudo-CART: a deterministic hash of (allophone, state) to
-    ``num_classes`` tied classes (the compute shape of a CART tying)."""
+    ``num_classes`` tied classes (the compute shape of a CART tying).
 
-    def __init__(self, n: int):
+    ``ctx_groups`` quantizes the left and right context phones into that
+    many groups before hashing, as a realistic CART collapses most
+    contexts; 0 keeps every context distinct (the across-word network's
+    worst case)."""
+
+    def __init__(self, n: int, ctx_groups: int = 0):
         self.num_classes = n
+        self.g = ctx_groups
+
+    def _ctx(self, p):
+        return (1 + p % self.g) if (self.g and p) else p
 
     def classify(self, state):
         al = state.allophone
+        left, right = self._ctx(al.left), self._ctx(al.right)
         h = (
-            (al.center * 73856093) ^ (al.left * 19349663) ^ (al.right * 83492791)
+            (al.center * 73856093) ^ (left * 19349663) ^ (right * 83492791)
             ^ (state.state * 2971215073)
         )
         return 1 + (h % (self.num_classes - 1))
 
 
 #: bench.py's decoder config at its environment defaults (bench.py:224-275);
-#: its auto ``branch_width`` rule gives 0 (the dense fan) on this network
+#: its auto ``branch_width`` rule gives 0 (the dense fan) on the headline
+#: network
 PRODUCTION_BEAM = BeamConfig(
     max_hyps=1024, beam=1e9, word_end_limit=64, root_hyps=16, branch_hyps=146,
     root_arc_limit=160, expansion_limit=0, root_select=512, deferred_emission=True,
@@ -59,6 +80,18 @@ PRODUCTION_BEAM = BeamConfig(
 SLICE_A_BEAM = BeamConfig(
     max_hyps=1024, beam=1e9, word_end_limit=64, root_hyps=16, branch_hyps=146, lm_scale=10.0,
 )
+
+
+#: ``build_setup`` knobs of the two decode paths beyond the headline one
+#: (``chip_smoke.py``, ``examples/profile_decode.py``): bench.py's
+#: ``BENCH_ACROSS=1 BENCH_CTX_GROUPS=4 BENCH_LA_ORDER=2`` cell, and its
+#: ``BENCH_LM_ORDER=4 BENCH_LA_ORDER=3 BENCH_SKIP_SCOPE=word
+#: BENCH_LA_UPDATE=survivor`` cell; both take compact branch slots by the
+#: auto rule
+PATHS = {
+    "across-word": dict(across_word=True, ctx_groups=4, la_order=2),
+    "4-gram": dict(lm_order=4, la_order=3, skip_scope="word", lookahead_update="survivor"),
+}
 
 
 def auto_branch_width(tree: PrefixTree, beam: BeamConfig) -> int:
@@ -82,7 +115,8 @@ class Setup(NamedTuple):
     tying: HashTying
     mixtures: MixtureSet
     lda: np.ndarray
-    beam: BeamConfig
+    beam: BeamConfig  # as the decoder runs it (branch_width resolved)
+    bigram_la: Optional[BigramLookahead] = None
 
 
 def build_setup(
@@ -94,7 +128,22 @@ def build_setup(
     seed: int = 0,
     device=None,
     beam: BeamConfig = PRODUCTION_BEAM,
+    lm_order: int = 2,
+    skip_scope: str = "phone",
+    across_word: bool = False,
+    ctx_groups: int = 0,
+    la_order: int = 1,
+    la_classes: int = 64,
+    la_smooth: float = 0.0,
+    lookahead_update: str = "arc",
+    branch_width: int = -1,
 ) -> Setup:
+    """The benchmark setup. ``lm_order`` > 2 extends the bigrams to
+    higher orders (``bench.py:116-126``); ``la_order`` >= 2 builds the
+    word-set bigram lookahead (3: trigram pair anchors) with
+    ``la_classes`` history classes and softmin ``la_smooth``; the decoder
+    runs ``beam`` with its ``lookahead_update`` and its ``branch_width``
+    replaced, -1 meaning bench.py's auto rule (:func:`auto_branch_width`)."""
     device = resolve(device)
     rng = np.random.default_rng(seed)
     lex = Lexicon()
@@ -111,7 +160,7 @@ def build_setup(
         seen.add(pron)
         lex.add_lemma([f"w{w}"], [(list(pron), 0.0)])
     topology = HmmTopology(states_per_phone=3, silence_states=1)
-    tying = HashTying(num_classes)
+    tying = HashTying(num_classes, ctx_groups)
 
     vocab = {"<s>": 0, "</s>": 1, "<unk>": 2}
     for lemma in lex.lemmata:
@@ -125,17 +174,33 @@ def build_setup(
     for _ in range(num_words * 12):
         a, b = rng.choice(ids), rng.choice(ids)
         ngrams[(int(a), int(b))] = (float(rng.uniform(2, 9)), 0.0)
-    lm = NgramLm(2, vocab, ngrams)
+    for k in range(3, lm_order + 1):
+        # higher orders extend existing (k-1)-grams, so prefix closure
+        # holds; their contexts get backoff weights (they become LM states)
+        prev = [g for g in ngrams if len(g) == k - 1]
+        picks = rng.integers(0, len(prev), size=num_words * 8)
+        for pi in picks:
+            g = prev[int(pi)]
+            w = int(rng.choice(ids))
+            ngrams[g + (w,)] = (float(rng.uniform(1, 7)), 0.0)
+            if g in ngrams and ngrams[g][1] == 0.0:
+                ngrams[g] = (ngrams[g][0], float(rng.uniform(0.2, 1.5)))
+    lm = NgramLm(lm_order, vocab, ngrams)
     unigrams = {wid: ngrams[(wid,)][0] for wid in vocab.values()}
     tree = build_prefix_tree(
         lex, tying, topology, TransitionModel(), lm_vocab=vocab,
-        lm_unigrams=unigrams, skip_scope="phone",
+        lm_unigrams=unigrams, across_word=across_word, skip_scope=skip_scope,
     )
-    if auto_branch_width(tree, beam):
-        raise NotImplementedError(
-            f"bench.py's rule asks for {auto_branch_width(tree, beam)} compact branch slots "
-            "on this network: branch_width is not ported yet"
-        )
+    bla = None
+    if la_order >= 2:
+        bla = build_bigram_lookahead(tree, lm, num_classes=la_classes,
+                                     order=min(la_order, 3), smooth=la_smooth)
+        if bla is None:
+            raise ValueError("no bigram lookahead for this network")
+    beam = dataclasses.replace(
+        beam, lookahead_update=lookahead_update,
+        branch_width=auto_branch_width(tree, beam) if branch_width < 0 else branch_width,
+    )
     ms = MixtureSet(
         means=rng.normal(size=(num_classes, densities, feat_dim)).astype(np.float32),
         variances=(0.5 + rng.uniform(size=(num_classes, densities, feat_dim))).astype(np.float32),
@@ -146,6 +211,7 @@ def build_setup(
     return Setup(
         frontend=FeatureFrontend(FrontendConfig(), splice_context=4, lda=lda, device=device),
         scorer=GmmFeatureScorer(ms, scale=1.0, device=device),
-        decoder=TreeDecoder(tree, compile_ngram(lm), beam, device=device),
+        decoder=TreeDecoder(tree, compile_ngram(lm), beam, bigram_la=bla, device=device),
         tree=tree, lexicon=lex, lm=lm, tying=tying, mixtures=ms, lda=lda, beam=beam,
+        bigram_la=bla,
     )

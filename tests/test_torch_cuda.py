@@ -39,8 +39,9 @@ from rasr_tpu_torch.ops.kernels.wordend import (  # noqa: E402
     WORD_NONE, wordend_block, wordend_block_plain,
 )
 from rasr_tpu_torch.examples import gather_microbench, wordend_microbench  # noqa: E402
-from rasr_tpu_torch.search.decoder import BeamConfig  # noqa: E402
-from rasr_tpu_torch.synthetic import build_setup  # noqa: E402
+from rasr_tpu_torch.models.lm.ngram import compile_ngram  # noqa: E402
+from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder  # noqa: E402
+from rasr_tpu_torch.synthetic import PATHS, build_setup  # noqa: E402
 
 
 @pytest.fixture
@@ -205,6 +206,33 @@ def test_slice_on_card_equals_cpu(card, slice_b):
     torch.testing.assert_close(e_card.cpu(), on_cpu.scorer(f_cpu), rtol=1e-4, atol=1e-2)
     a = on_card.decoder.decode_scores(e_card, n_card)
     b = on_cpu.decoder.decode_scores(e_card.cpu(), n_cpu)
+    assert [r.words for r in a] == [r.words for r in b]
+    np.testing.assert_allclose([r.score for r in a], [r.score for r in b], rtol=1e-5)
+
+
+#: compact slots for chip_smoke.py's two slice-C paths at a scaled-down
+#: size, which the 16 branch hyps' fans overflow
+SLICE_C_WIDTH = {"across-word": 96, "4-gram": 24}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_slice_c_path_on_card_equals_cpu(card, path):
+    """One setup built once; its decoder on the card and a decoder of the
+    same network, LM and lookahead on the CPU decode the same scores."""
+    beam = BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=4, branch_hyps=16,
+                      root_arc_limit=12, root_select=48, deferred_emission=True, lm_scale=10.0)
+    s = build_setup(num_words=80, num_phones=12, num_classes=150, densities=4, beam=beam,
+                    device=card, **dict(PATHS[path], branch_width=SLICE_C_WIDTH[path]))
+    on_cpu = TreeDecoder(s.tree, compile_ngram(s.lm), s.beam, bigram_la=s.bigram_la,
+                         device="cpu")
+    x = torch.from_numpy((np.random.default_rng(5).normal(size=(3, 12000)) * 0.1)
+                         .astype(np.float32)).to(card)
+    feats, n = s.frontend(x, torch.tensor([12000, 9000, 5000], device=card))
+    e = s.scorer(feats)
+    a = s.decoder.decode_scores(e, n)
+    b = on_cpu.decode_scores(e.cpu(), n.cpu())
+    assert all(r.words for r in b)
     assert [r.words for r in a] == [r.words for r in b]
     np.testing.assert_allclose([r.score for r in a], [r.score for r in b], rtol=1e-5)
 

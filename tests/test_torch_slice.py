@@ -5,8 +5,10 @@ generator at a few dozen words) drives the JAX pipeline (frontend ->
 GMM scorer -> tree decoder) and two port pipelines: one whose state is
 carried across from the JAX objects by ``convert.py``, and one built
 natively by the port. All three must recognise the same words: under
-decoder slice A's plain pruning, and under bench.py's production pruning
-(root select, deferred emission, root-arc cap) scaled down.
+decoder slice A's plain pruning, under bench.py's production pruning
+(root select, deferred emission, root-arc cap) scaled down, and on the
+across-word network with 4 context groups, bigram lookahead and compact
+branch slots.
 """
 
 import dataclasses
@@ -23,33 +25,43 @@ from rasr_tpu.ops.frontend import FeatureFrontend as JaxFrontend
 from rasr_tpu.ops.frontend import FrontendConfig as JaxFrontendConfig
 from rasr_tpu.search.decoder import BeamConfig as JaxBeamConfig
 from rasr_tpu.search.decoder import TreeDecoder as JaxTreeDecoder
+from rasr_tpu.search.decoder import bigram_to_device as jax_bigram_to_device
+from rasr_tpu.search.lookahead import build_bigram_lookahead as jax_build_bigram_lookahead
 from rasr_tpu.search.tree import build_prefix_tree as jax_build_prefix_tree
 from rasr_tpu_torch import convert
 from rasr_tpu_torch.models.scorer import GmmFeatureScorer
 from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig
 from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder, _Step
-from rasr_tpu_torch.synthetic import PRODUCTION_BEAM, auto_branch_width, build_setup
+from rasr_tpu_torch.synthetic import PATHS, PRODUCTION_BEAM, auto_branch_width, build_setup
 
 BEAM = dict(max_hyps=64, word_end_limit=16, root_hyps=4, branch_hyps=16, lm_scale=10.0)
 # the production beam's slice-B options at this size: R3 and the root-arc
 # cap both bind (the network has ~60 root arcs)
 BEAM_B = dict(BEAM, root_arc_limit=10, root_select=24, deferred_emission=True)
+# the across-word path of chip_smoke.py scaled down: 4 context groups,
+# word-set bigram lookahead, and compact slots that the 16 branch hyps'
+# fans overflow (the grouped roots fan out to most of the vocabulary)
+ACROSS = dict(PATHS["across-word"], branch_width=96)
 
 
-def _pipelines(BEAM):
+def _pipelines(BEAM, **knobs):
     s = build_setup(num_words=60, num_phones=12, num_classes=120, densities=4,
-                    beam=BeamConfig(**BEAM), device="cpu")
+                    beam=BeamConfig(**BEAM), device="cpu", **knobs)
     lm = s.lm
     unigrams = {wid: lm.ngrams[(wid,)][0] for wid in lm.vocab.values()}
     jtree = jax_build_prefix_tree(
         s.lexicon, s.tying, HmmTopology(states_per_phone=3, silence_states=1),
         TransitionModel(), lm_vocab=lm.vocab, lm_unigrams=unigrams, skip_scope="phone",
+        across_word=knobs.get("across_word", False),
     )
+    bla = (None if s.bigram_la is None
+           else jax_build_bigram_lookahead(jtree, lm, num_classes=64, order=2))
+    beam = dataclasses.asdict(s.beam)  # the knobs' branch_width and lookahead update
     ms = s.mixtures
     jax_side = (
         JaxFrontend(JaxFrontendConfig(), splice_context=4, lda=s.lda),
         JaxGmmScorer(JaxMixtureSet(ms.means, ms.variances, ms.weights, ms.num_densities)),
-        JaxTreeDecoder(jtree, jax_compile_ngram(lm), JaxBeamConfig(**BEAM)),
+        JaxTreeDecoder(jtree, jax_compile_ngram(lm), JaxBeamConfig(**beam), bigram_la=bla),
     )
     jfe, jsc, jdec = jax_side
     carried = (
@@ -57,7 +69,9 @@ def _pipelines(BEAM):
                         lda=np.asarray(jfe.lda),
                         params=convert.frontend_params_from_jax(jfe.params, "cpu"), device="cpu"),
         GmmFeatureScorer(None, tensors=convert.scoring_tensors_from_jax(jsc.tensors, "cpu")),
-        TreeDecoder(jtree, convert.ngram_tables_from_jax(jdec.lm, "cpu"), BeamConfig(**BEAM),
+        TreeDecoder(jtree, convert.ngram_tables_from_jax(jdec.lm, "cpu"), s.beam,
+                    bigram_la=None if bla is None else convert.bigram_tables_from_jax(
+                        jax_bigram_to_device(bla, jtree), "cpu"),
                     tables=convert.tree_tables_from_jax(jdec.tables, "cpu"), device="cpu"),
     )
     native = (s.frontend, s.scorer, s.decoder)
@@ -115,10 +129,21 @@ def test_audio_to_words_slice_b_port_equals_jax(monkeypatch):
             assert len(np.unique(live)) == len(live)
 
 
+def test_audio_to_words_across_word_port_equals_jax():
+    """chip_smoke.py's across-word path scaled down: the across-word
+    network over a tying that quantizes contexts to 4 groups, word-set
+    bigram lookahead ("arc" updates) and compact branch slots."""
+    pipes = _pipelines(BEAM, **ACROSS)
+    s_tree, decoder = pipes[2][2].tree, pipes[2][2]
+    assert s_tree.num_final_states == 2 and s_tree.max_word_ends > 1
+    assert decoder.bla is not None and decoder.bla.deep
+    assert BEAM["branch_hyps"] * decoder.tables.branch_degree > ACROSS["branch_width"]
+    _assert_audio_to_words_equal(pipes)
+
+
 def test_build_setup_applies_bench_branch_width_rule():
     """bench.py's auto rule (bench.py:218-223): the dense branch fan while
-    Kb x the largest overflow degree fits 4096 - 3K, else compact slots,
-    which the port does not run yet and so refuses."""
+    Kb x the largest overflow degree fits 4096 - 3K, else compact slots."""
     kw = dict(num_words=60, num_phones=12, num_classes=120, densities=4)
     s = build_setup(**kw, device="cpu")
     assert s.beam == PRODUCTION_BEAM and s.decoder.cfg.root_select == 512
@@ -129,5 +154,6 @@ def test_build_setup_applies_bench_branch_width_rule():
     wide = dataclasses.replace(PRODUCTION_BEAM, max_hyps=1400, branch_hyps=300)
     assert 300 * db > 256
     assert auto_branch_width(s.tree, wide) == 254
-    with pytest.raises(NotImplementedError):
-        build_setup(**kw, beam=wide, device="cpu")
+    s_wide = build_setup(**kw, beam=wide, device="cpu")
+    assert s_wide.beam == dataclasses.replace(wide, branch_width=254)
+    assert s_wide.decoder.cfg.branch_width == 254

@@ -1,5 +1,6 @@
-"""The port's JAX-free copy of the within-word prefix-tree builder must
-equal ``rasr_tpu.search.tree`` field by field."""
+"""The port's JAX-free copy of the prefix-tree builders (within-word and
+across-word) must equal ``rasr_tpu.search.tree`` field by field, and the
+two packages must read each other's network images."""
 
 import math
 
@@ -16,6 +17,7 @@ from rasr_tpu_torch.models import hmm as thmm
 from rasr_tpu_torch.models import tying as ttying
 from rasr_tpu_torch.models.lm import arpa as tarpa
 from rasr_tpu_torch.search import tree as ttree
+from rasr_tpu_torch.synthetic import HashTying
 
 ARRAYS = ("emission_class", "loop_cost", "arc_ptr", "arc_dst", "arc_cost", "we_word",
           "we_cost", "we_lemma", "lookahead", "we_next")
@@ -90,7 +92,55 @@ def test_no_lm_vocab_and_across_word():
     got = ttree.build_prefix_tree(lex, tying, topo)
     np.testing.assert_array_equal(got.we_word, want.we_word)
     assert ttree.BIG == 1.0e30 and ttree.WORD_NONE == jtree.WORD_NONE
-    with pytest.raises(NotImplementedError):
-        ttree.build_prefix_tree(lex, tying, topo, across_word=True)
+    # the across-word network (without an LM vocabulary): context roots,
+    # word ends re-entering them, two final states
+    want = jtree.build_prefix_tree(lex, tying, topo, across_word=True)
+    got = ttree.build_prefix_tree(lex, tying, topo, across_word=True)
+    _assert_same_tree(got, want, False)
+    assert got.num_final_states == 2 and got.we_next is not None
     with pytest.raises(ValueError):
         ttree.build_prefix_tree(lex, tying, topo, skip_scope="utterance")
+
+
+@pytest.mark.parametrize("ctx_groups", [0, 2])
+@pytest.mark.parametrize("skip_scope", ["word", "phone"])
+def test_across_word_network_equals_reference(skip_scope, ctx_groups):
+    """Grouped context roots: a hashed triphone tying with every context
+    distinct, and with contexts quantized to 2 groups (bench.py's
+    ``BENCH_CTX_GROUPS``), which merges right-context copies into
+    signature groups and stacks word-end slots."""
+    lex, topo, _, lm = _setup(3)
+    tying = HashTying(997, ctx_groups)
+    kw = dict(lm_vocab=lm.vocab, lm_unigrams={w: lm.score((), w) for w in lm.vocab.values()},
+              skip_scope=skip_scope, across_word=True)
+    trans = _transitions(Tdp, TransitionModel)
+    want = jtree.build_prefix_tree(lex, tying, topo, trans, **kw)
+    got = ttree.build_prefix_tree(lex, tying, topo, trans, **kw)
+    _assert_same_tree(got, want, True)
+    assert got.num_final_states == 2
+    assert int(got.we_next.max()) > 1  # re-entries at context roots
+    roots = int(np.argmax(got.loop_cost < 1e29))
+    assert roots > 2 and np.all(got.lookahead[:roots] == got.lookahead[0])
+
+
+@pytest.mark.parametrize("across_word", [False, True])
+def test_tree_image_loads_across_packages(tmp_path, across_word):
+    """An image saved by the JAX package loads in the port, and one the
+    port saved loads in the JAX package: the same arrays, lemmas rebound
+    from the lexicon."""
+    lex, topo, tying, lm = _setup(3)
+    kw = dict(lm_vocab=lm.vocab, lm_unigrams={w: lm.score((), w) for w in lm.vocab.values()},
+              across_word=across_word)
+    trans = _transitions(Tdp, TransitionModel)
+    want = jtree.build_prefix_tree(lex, tying, topo, trans, **kw)
+    jtree.save_tree(want, str(tmp_path / "jax.npz"))
+    got = ttree.load_tree(str(tmp_path / "jax.npz"), lex)
+    _assert_same_tree(got, want, True)
+    ttree.save_tree(ttree.build_prefix_tree(lex, tying, topo, trans, **kw),
+                    str(tmp_path / "port.npz"))
+    _assert_same_tree(jtree.load_tree(str(tmp_path / "port.npz"), lex), want, True)
+    other = Lexicon()
+    build_default_silence(other)
+    other.add_lemma(["AB"], [(["a", "b"], 0.0)])
+    with pytest.raises(ValueError):
+        ttree.load_tree(str(tmp_path / "jax.npz"), other)
