@@ -23,7 +23,16 @@ counters set to 0 just before it and read just after:
   across-word network of a tying with 4 context groups, with word-set
   bigram lookahead and compact branch slots (one warm-up, one timed batch);
 - the 4-gram path: a 4-gram LM with trigram lookahead under survivor
-  updates, word-scope skips and compact slots, at B=16 (one timed batch).
+  updates, word-scope skips and compact slots, at B=16 (one timed batch);
+- the conformer path: bench.py's hybrid conformer (d=512, 12 blocks, 8
+  heads, bf16 products; ``build_setup(scorer="conformer")``) in front of
+  the headline decoder, B=64 x 10 s after a warm-up batch, with the
+  scorer's device time beside its bound; its float32 twin on the card
+  must match the same weights on the CPU, and the bf16 network the
+  float32 one;
+- the streaming path (``rasr_tpu_torch.examples.streaming_bench``): the
+  main path's decoder fed its GMM emissions of 64 x 998 frames in blocks
+  of 16, 32 and 128 frames, each stream equal to the offline decode.
 
 A small batch decoded on the card and on the CPU must agree on every
 path. Prints per-stage times tagged with the card's name and power
@@ -50,6 +59,12 @@ MFCC_RTOL, MFCC_ATOL = 2e-4, 2e-4  # the reference's own kernel tolerance
 # CUDA vs CPU decode of the same scores: identical float ops, so words
 # must match exactly; scores within bench.py's cross-backend 1e-2
 DECODE_RTOL = 1e-2
+# the conformer's emissions (10 x nats, ~50-80): its float32 twin on the
+# card against the CPU (cuBLAS vs the CPU's sums, no TF32), and the bf16
+# network against the float32 one (bf16 products: ~0.3 max and ~0.06 mean
+# on a 120-frame input at d=512 on the CPU, at 1, 2 and 4 blocks)
+NN_F32_RTOL, NN_F32_ATOL = 1e-4, 1e-2
+NN_BF16_RTOL, NN_BF16_ATOL = 1e-2, 1.0
 
 BATCH, AUDIO_S, TIMED_BATCHES = 64, 10.0, 2
 SLICE_A_BATCH = 16  # slice A at reduced depth: one timed batch
@@ -64,6 +79,7 @@ SLICE_C = {"across-word": (BATCH, True), "4-gram": (16, False)}
 # tensor cores as three TF32 products each (3xTF32, fp32 accuracy), so
 # those products count three times at the TF32 rate.
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+BF16_FLOPS = 989e12  # dense, on the tensor cores
 
 
 def bound(flop: float, nbytes: float, tf32x3_flop: float = 0.0):
@@ -73,6 +89,17 @@ def bound(flop: float, nbytes: float, tf32x3_flop: float = 0.0):
     t_op = max(flop / FP32_FLOPS, 3.0 * tf32x3_flop / TF32_FLOPS) * 1e3
     t_mem = nbytes / HBM_BYTES_S * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def conformer_flop(cfg: dict, in_dim: int, classes: int, T: int):
+    """(bf16, float32) FLOP per frame of ``ConformerEncoderNet(**cfg)``
+    over utterances of T frames: the projections, feed-forwards,
+    pointwise and depthwise convs and ``Q K^T`` in the compute dtype, the
+    attention weights times the values in float32 (flax's
+    ``force_fp32_for_softmax``)."""
+    d, L, ff, k = cfg["d_model"], cfg["num_blocks"], cfg["ff_mult"], cfg["conv_kernel"]
+    block = 2 * 2 * d * ff * d + 4 * d * d + d * 2 * d + d * d + d * k + T * d  # MACs
+    return 2.0 * (in_dim * d + L * block + d * classes), 2.0 * L * T * d
 
 
 def card_tag() -> str:
@@ -119,12 +146,13 @@ def main() -> int:
     from rasr_tpu_torch import _build
     from rasr_tpu_torch.device import cuda_device, cuda_graph_ms, cuda_ms
     from rasr_tpu_torch.corpus.lexicon import Lexicon, build_default_silence
-    from rasr_tpu_torch.examples import gather_microbench, wordend_microbench
+    from rasr_tpu_torch.examples import gather_microbench, streaming_bench, wordend_microbench
     from rasr_tpu_torch.models.allophone import Allophone, AllophoneState
     from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
     from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
     from rasr_tpu_torch.models.lm.arpa import NgramLm
     from rasr_tpu_torch.models.lm.ngram import compile_ngram
+    from rasr_tpu_torch.models.nn import ConformerEncoderNet, NnHybridScorer, StatePriors
     from rasr_tpu_torch.models.tying import MonophoneStateTying
     from rasr_tpu_torch.ops.frontend import (
         FrontendConfig, frame_signal, make_params, num_frames, preemphasize,
@@ -137,7 +165,7 @@ def main() -> int:
     from rasr_tpu_torch.ops.kernels.wordend import WORD_NONE, wordend_block, wordend_block_plain
     from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
     from rasr_tpu_torch.search.tree import build_prefix_tree
-    from rasr_tpu_torch.synthetic import PATHS, SLICE_A_BEAM, build_setup
+    from rasr_tpu_torch.synthetic import CONFORMER, PATHS, SLICE_A_BEAM, build_setup
 
     dev = cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -450,6 +478,60 @@ def main() -> int:
         c_setups[label] = sc
         del f, e, results
 
+    # ------------- the conformer hybrid path (bench.py's BENCH_SCORER=conformer)
+    t0 = time.time()
+    sn = build_setup(device=dev, **PATHS["conformer"])
+    nn_setup_s = time.time() - t0
+    net = sn.scorer.model
+    if sn.tree.num_states != s.tree.num_states or sn.decoder.lm.num_states != s.decoder.lm.num_states:
+        raise AssertionError("the conformer setup drew another network or LM than the main path")
+    say(f"conformer setup {nn_setup_s:.1f} s: {sum(p.numel() for p in net.parameters())} "
+        f"parameters ({CONFORMER}, compute dtype {net.cdt}); the main path's network and LM")
+    run_batch(sn.decoder, samples, lengths, sn)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    f, e, nf, results, stage = run_batch(sn.decoder, samples, lengths, sn)
+    nn_launches = read_counts("conformer path", mfcc_frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_outputs(f, e, nf, results, BATCH)
+    report("conformer path", stage, 1, BATCH, nn_launches, peak)
+    say(f"conformer sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
+    nn_ms = cuda_ms(lambda: sn.scorer(f), 3)
+    flop16, flop32 = (BATCH * T * x for x in conformer_flop(CONFORMER, f.shape[-1],
+                                                             sn.scorer.num_classes, T))
+    nn_bytes = 4.0 * (sum(p.numel() for p in net.parameters()) + f.numel() + e.numel())
+    nn_bound = max(flop16 / BF16_FLOPS, flop32 / FP32_FLOPS, nn_bytes / HBM_BYTES_S) * 1e3
+    all_bf16 = (flop16 + flop32) / BF16_FLOPS * 1e3
+    say(f"conformer scorer B={BATCH} x {T} frames: {nn_ms:.3f} ms on the card (CUDA events, 3 "
+        f"calls); bound {nn_bound:.3f} ms (operations: {flop16:.3e} bf16 FLOP at 989 TFLOP/s "
+        f"beside {flop32:.3e} float32 FLOP of the attention-value product at 67 TFLOP/s), "
+        f"share {nn_bound / nn_ms:.1%}; at 989 TFLOP/s for all {flop16 + flop32:.3e} FLOP "
+        f"{all_bf16:.3f} ms, share {all_bf16 / nn_ms:.1%}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sn.scorer(f)
+        torch.cuda.synchronize()
+    kernels = sorted(((getattr(k, "device_time_total", 0.0), k.key) for k in prof.key_averages()),
+                     reverse=True)
+    total_us = max(sum(t for t, _ in kernels), 1e-9)
+    say(f"conformer scorer under torch.profiler: {total_us / 1e3:.1f} ms of device time; top: "
+        + "; ".join(f"{name[:60]} {t / 1e3:.1f} ms ({t / total_us:.0%})" for t, name in kernels[:8]))
+    del f, e, results
+
+    # ---------- the streaming path: the main path's decoder, fed in blocks
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    stream_rows = streaming_bench.run(dev, s)
+    stream_launches = read_counts("streaming path", gmm_scores, mfcc_frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for row in stream_rows:
+        say(f"streaming block {row['block_frames']}: {row['audio_s_per_s']:.1f} audio-s/s "
+            f"(offline {row['offline_audio_s_per_s']:.1f}), per feed {row['per_feed_ms']:.2f} ms "
+            f"(synced p50 {row['per_feed_ms_synced_p50']:.2f}, p95 "
+            f"{row['per_feed_ms_synced_p95']:.2f}; budget {row['feed_budget_ms']:.0f}), "
+            f"current_best {row['current_best_ms_warm']:.2f} ms warm; streamed == offline")
+    say(f"streaming launches {stream_launches}; peak device memory {peak / 2**30:.2f} GiB")
+
     # --------------------- CUDA decode == CPU decode, every beam and path
     small = int(3.0 * 16000)
     x2 = samples[:2, :small]
@@ -470,6 +552,25 @@ def main() -> int:
         pairs.append((label, sc.decoder, TreeDecoder(
             sc.tree, compile_ngram(sc.lm), sc.beam, bigram_la=sc.bigram_la, device="cpu"),
             sc.scorer(fc), nfc))
+    # the conformer: its float32 twin on the card against the CPU, the bf16
+    # network against that twin, then the decode of the bf16 emissions
+    fn2, nfn2 = sn.frontend(x2, torch.full((2,), small, device=dev))
+    priors = StatePriors(sn.scorer.log_priors.cpu().numpy())
+    twins = [NnHybridScorer(ConformerEncoderNet(sn.scorer.num_classes, fn2.shape[-1], **CONFORMER,
+                                                device=d_), net.state_dict(), priors, scale=10.0,
+                            device=d_) for d_ in (dev, "cpu")]
+    e32 = twins[0](fn2)
+    nn_f32_err = check_close("conformer float32: card vs cpu", e32.cpu(), twins[1](fn2.cpu()),
+                             NN_F32_RTOL, NN_F32_ATOL)
+    en2 = sn.scorer(fn2)
+    nn_bf16_err = check_close("conformer bf16 vs float32 on the card", en2, e32,
+                              NN_BF16_RTOL, NN_BF16_ATOL)
+    say(f"conformer on B=2 x 3 s: float32 card vs cpu max abs err {nn_f32_err:.3e} (tolerance "
+        f"{NN_F32_ATOL} + {NN_F32_RTOL} x score); bf16 vs float32 {nn_bf16_err:.3e} "
+        f"({NN_BF16_ATOL} + {NN_BF16_RTOL} x score)")
+    pairs.append(("conformer", sn.decoder, TreeDecoder(
+        sn.tree, compile_ngram(sn.lm), sn.beam, device="cpu"), en2, nfn2))
+    del twins
     for label, on_dev, on_host, e_, nf_ in pairs:
         on_card = on_dev.decode_scores(e_, nf_)
         on_cpu = on_host.decode_scores(e_.cpu(), nf_.cpu())

@@ -3,14 +3,17 @@
 Mirrors ``rasr_tpu``'s layout and names. Plain tensor code is PyTorch;
 every Pallas kernel of the ported path is a hand-written CUDA kernel for
 ``sm_90a`` under ``csrc/``, built with nvcc at first use
-(``_build.py``). Imports ``torch`` and never ``jax``; the JAX-free host
-modules (lexicon, HMM topology, tying, allophones, ARPA parsing) are
-shared with ``rasr_tpu``.
+(``_build.py``). Imports ``torch`` and never ``jax``, nor ``rasr_tpu``:
+it carries its own copies of the JAX-free host modules (lexicon, HMM
+topology, tying, allophones, ARPA parsing).
 
-Ported so far (the decode path): ``ops.frontend`` (MFCC / CMVN / splice
-/ LDA), ``models.gmm`` + ``models.scorer`` (GMM scoring),
-``models.lm.ngram`` (hash-table n-gram LM), ``search.tree`` (within-word
-prefix tree) and ``search.decoder`` (frame-synchronous beam search).
+Ported so far (the decode paths): ``ops.frontend`` (MFCC / CMVN / splice
+/ LDA), ``models.gmm`` + ``models.scorer`` (GMM scoring), ``models.nn``
+(NN acoustic models and the hybrid scorer), ``models.lm.ngram``
+(hash-table n-gram LM), ``search.tree`` (the within-word and across-word
+networks), ``search.lookahead`` (bigram / trigram LM lookahead),
+``search.decoder`` (frame-synchronous beam search) and
+``search.streaming`` (block-feed online decoding).
 """
 
 __version__ = "0.1.0"

@@ -4,21 +4,26 @@ Each function takes a ``rasr_tpu`` object, reads its arrays as numpy
 (``np.asarray(field)``) and builds the port's counterpart on ``device`` (the card when it is None).
 Nothing here imports jax: the functions only read attributes, so they
 accept the JAX objects directly. (The LDA matrix needs no converter:
-``FeatureFrontend`` takes it as a numpy array.)
+``FeatureFrontend`` takes it as a numpy array.) ``nn_params_from_flax``
+turns a flax parameter tree into a ``state_dict`` for one of the port's
+networks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
+from torch import nn
 
 from .device import resolve
 from .models.gmm import ScoringTensors
 from .models.lm.ngram import NgramTables
 from .ops.frontend import FrontendParams
 from .search.decoder import BigramTables, TreeTables
+
 
 def _tensor(x, device, index: bool = False) -> torch.Tensor:
     a = np.array(x)  # a writable host copy of the (read-only) JAX buffer
@@ -79,3 +84,59 @@ def bigram_tables_from_jax(tables, device=None) -> BigramTables:
     ``TreeDecoder(bigram_la=...)`` to decode on the JAX decoder's own
     lookahead tables)."""
     return _tables_from_jax(BigramTables, tables, device)
+
+
+def _flax_path(name: str):
+    """A module name of the port's networks -> its flax scope path: a
+    list index joins its list's name (``block.3.mhsa.query`` ->
+    ``block3/mhsa/query``, ``hidden.0`` -> ``hidden0``)."""
+    return re.sub(r"\.(\d+)", r"\1", name).split(".")
+
+
+def nn_params_from_flax(model: nn.Module, params) -> dict:
+    """The JAX package's flax parameter tree of one of the networks of
+    ``rasr_tpu.models.nn`` (numpy or JAX arrays) -> a ``state_dict`` for
+    the port's ``model`` of the same shape (``model.load_state_dict``).
+
+    ``Dense`` kernels ``[in, out]`` become ``Linear.weight [out, in]``;
+    the attention's ``query`` / ``key`` / ``value`` kernels ``[d, H, hd]``
+    and biases ``[H, hd]`` flatten their heads, ``out`` ``[H, hd, d]``
+    likewise; ``Conv`` kernels ``[k, in / groups, out]`` become
+    ``[out, in / groups, k]``; LayerNorm ``scale`` becomes ``weight``.
+    An LSTM layer i takes the cells ``OptimizedLSTMCell_{2i}`` (forward)
+    and ``_{2i+1}`` (backward), flax's order of creation: the input
+    kernels ``ii / if / ig / io`` (no bias) and the hidden ones
+    ``hi / hf / hg / ho`` stack in torch's gate order i, f, g, o, with the
+    hidden biases as ``bias_hh`` and ``bias_ih`` zero."""
+
+    def host(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.LSTM):
+            for direction, suffix in enumerate(("", "_reverse")):
+                layer = int(name.rsplit(".", 1)[1])
+                cell = params[f"OptimizedLSTMCell_{2 * layer + direction}"]
+                w_ih = torch.cat([host(cell[f"i{g}"]["kernel"]).T for g in "ifgo"])
+                w_hh = torch.cat([host(cell[f"h{g}"]["kernel"]).T for g in "ifgo"])
+                b_hh = torch.cat([host(cell[f"h{g}"]["bias"]) for g in "ifgo"])
+                out.update({f"{name}.weight_ih_l0{suffix}": w_ih,
+                            f"{name}.weight_hh_l0{suffix}": w_hh,
+                            f"{name}.bias_ih_l0{suffix}": torch.zeros_like(b_hh),
+                            f"{name}.bias_hh_l0{suffix}": b_hh})
+            continue
+        if not isinstance(mod, (nn.Linear, nn.Conv1d, nn.LayerNorm)):
+            continue
+        tree = params
+        for key in _flax_path(name):
+            tree = tree[key]
+        if isinstance(mod, nn.Linear):
+            weight = host(tree["kernel"]).reshape(mod.in_features, mod.out_features).T
+        elif isinstance(mod, nn.Conv1d):
+            weight = host(tree["kernel"]).permute(2, 1, 0)
+        else:
+            weight = host(tree["scale"])
+        out[f"{name}.weight"] = weight.contiguous()
+        out[f"{name}.bias"] = host(tree["bias"]).reshape(-1)
+    return out

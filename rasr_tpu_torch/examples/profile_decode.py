@@ -50,6 +50,16 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def emissions(setup, device, batch: int, frames: int) -> torch.Tensor:
+    """``[batch, frames, M]`` emissions of seeded noise (10 s of it at 998
+    frames), through ``setup``'s frontend and scorer on ``device``."""
+    samples = (frames + 3) * 160 + 400  # 10 ms shift, 25 ms window: >= frames frames
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.normal(size=(batch, samples)) * 0.1).astype(np.float32)).to(device)
+    feats, _ = setup.frontend(x, torch.full((batch,), samples, device=device))
+    return setup.scorer(feats)[:, :frames].contiguous()
+
+
 def profile(device, beam: str, path: str = "production") -> dict:
     device = torch.device(device)
     if device.type != "cuda":
@@ -58,11 +68,7 @@ def profile(device, beam: str, path: str = "production") -> dict:
     s = build_setup(device=device, beam=BEAMS[beam], **PATHS.get(path, {}))
     setup_s = time.perf_counter() - t0
     B = BATCH_OF_PATH.get(path, BATCH)
-    samples = (FRAMES + 3) * 160 + 400  # 10 ms shift, 25 ms window: >= FRAMES frames
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy((rng.normal(size=(B, samples)) * 0.1).astype(np.float32)).to(device)
-    feats, _ = s.frontend(x, torch.full((B,), samples, device=device))
-    emis = s.scorer(feats)[:, :FRAMES].contiguous()
+    emis = emissions(s, device, B, FRAMES)
 
     def decode(f):
         out = s.decoder.decode_scores_device(

@@ -50,7 +50,11 @@ the same hypotheses. The recombination key is ``state * L + lm`` in
 int64; when it fits 31 bits it is packed with the score into one sort
 key, otherwise two stable sorts give the same order.
 
-The frame loop is a Python loop; ``n_frames`` stays on the device.
+The frame loop is a Python loop over a block of frames from a global
+frame ``t0`` (``_decode_block``); ``n_frames`` stays on the device. The
+offline decode is one block over the whole utterance, a stream
+(``search/streaming.py``) one block per feed, and both end in the same
+frontier finalize (``TreeDecoder._finalize``).
 """
 
 from __future__ import annotations
@@ -579,7 +583,9 @@ class _Step:
                 root_phi)
 
     def __call__(self, c: Carry, emis_t: torch.Tensor, t: int,
-                 n_frames: torch.Tensor, recs: Records) -> Carry:
+                 n_frames: torch.Tensor, recs: Records, row: int) -> Carry:
+        """Frame ``t`` (global: record ids ``t * R + r``); its word-end
+        records go to row ``row`` of ``recs``."""
         tree, cfg, bla = self.tree, self.cfg, self.bla
         SENT = tree.sentinel
         K, R, L = cfg.max_hyps, cfg.word_end_limit, self.L
@@ -780,12 +786,12 @@ class _Step:
             phi = torch.where(active, f_phi, phi)
         is_last = (t == n_frames - 1)[:, None]
 
-        recs.lemma[t] = torch.where(r_valid, r_lemma, -1)
-        recs.score[t] = torch.where(r_valid, r_score, BIG)
-        recs.prev[t] = torch.where(r_valid, r_srcbp, -1)
-        recs.lmcost[t] = r_lmcost
-        recs.word[t] = torch.where(r_valid, r_word, WORD_NONE)
-        recs.lm[t] = torch.where(r_valid, r_newlm, -1)
+        recs.lemma[row] = torch.where(r_valid, r_lemma, -1)
+        recs.score[row] = torch.where(r_valid, r_score, BIG)
+        recs.prev[row] = torch.where(r_valid, r_srcbp, -1)
+        recs.lmcost[row] = r_lmcost
+        recs.word[row] = torch.where(r_valid, r_word, WORD_NONE)
+        recs.lm[row] = torch.where(r_valid, r_newlm, -1)
         return Carry(
             state, lms, score, bp,
             torch.where(is_last, state, c.fstate),
@@ -807,6 +813,26 @@ class DeviceDecode(NamedTuple):
     finals: Carry
     end_cost: torch.Tensor  # [B, K] scaled </s> cost of the finals
     word_end_limit: int
+
+
+def _decode_block(step: _Step, c: Carry, emissions: torch.Tensor, t0: int,
+                  n_frames: torch.Tensor):
+    """Advance the beam over one block of frames ``[B, Tb, M]`` whose first
+    frame is the utterances' frame ``t0`` (the counterpart of the
+    reference's ``_decode_block``): returns the carry and the block's
+    records ``[Tb, B, R]``. The offline decode is one block from frame 0;
+    a stream is one block per feed."""
+    B, Tb, _ = emissions.shape
+    R, dev = step.cfg.word_end_limit, emissions.device
+
+    def rec(dtype, fill):
+        return torch.full((Tb, B, R), fill, dtype=dtype, device=dev)
+
+    recs = Records(rec(torch.int64, -1), rec(torch.float32, BIG), rec(torch.int64, -1),
+                   rec(torch.float32, 0.0), rec(torch.int64, WORD_NONE), rec(torch.int64, -1))
+    for i in range(Tb):
+        c = step(c, emissions[:, i], t0 + i, n_frames, recs, i)
+    return c, recs
 
 
 def _best_and_records(lm, prep, recs: Records, c: Carry, cfg: BeamConfig,
@@ -926,25 +952,32 @@ class TreeDecoder:
         place."""
         if mesh is not None or beam_axis is not None:
             raise NotImplementedError("sharded / beam-partitioned decoding is not ported yet")
-        cfg = self.cfg
         emissions = torch.as_tensor(emissions, dtype=torch.float32, device=self.device)
         n_frames = torch.as_tensor(n_frames, device=self.device).to(torch.int64)
         B, T, _M = emissions.shape
-        K, R = cfg.max_hyps, cfg.word_end_limit
-        kbranch = min(cfg.branch_hyps or K, K)
-        step = _Step(self.tables, self.lm, self.lm_prep, cfg, self.tree.max_word_ends,
-                     min(cfg.root_hyps, K), kbranch, self.bla)
+        carry, recs = _decode_block(self._step(), init_carry(B, self.cfg, self.lm, self.device),
+                                    emissions, 0, n_frames)
+        return self._finalize(carry, [recs], n_frames <= T)
 
-        def rec(dtype, fill):
-            return torch.full((T, B, R), fill, dtype=dtype, device=self.device)
+    def _step(self) -> _Step:
+        """The frame step over this decoder's tables and beam."""
+        K = self.cfg.max_hyps
+        return _Step(self.tables, self.lm, self.lm_prep, self.cfg, self.tree.max_word_ends,
+                     min(self.cfg.root_hyps, K), min(self.cfg.branch_hyps or K, K), self.bla)
 
-        recs = Records(rec(torch.int64, -1), rec(torch.float32, BIG), rec(torch.int64, -1),
-                       rec(torch.float32, 0.0), rec(torch.int64, WORD_NONE),
-                       rec(torch.int64, -1))
-        carry = init_carry(B, cfg, self.lm, self.device)
-        for t in range(T):
-            carry = step(carry, emissions[:, t], t, n_frames, recs)
-        return _best_and_records(self.lm, self.lm_prep, recs, carry, cfg,
+    def _finalize(self, c: Carry, blocks: Sequence[Records],
+                  captured: torch.Tensor) -> DeviceDecode:
+        """The best hypotheses at the frontier (the counterpart of the
+        reference's ``_finalize_stream``): utterances whose declared length
+        was reached (``captured``) take the finals frozen at their last
+        frame, the others the live beam. The blocks' records join in frame
+        order."""
+        cap = captured[:, None]
+        finals = c._replace(
+            fstate=torch.where(cap, c.fstate, c.state), flm=torch.where(cap, c.flm, c.lms),
+            fscore=torch.where(cap, c.fscore, c.score), fbp=torch.where(cap, c.fbp, c.bp))
+        recs = blocks[0] if len(blocks) == 1 else Records(*(torch.cat(r) for r in zip(*blocks)))
+        return _best_and_records(self.lm, self.lm_prep, recs, finals, self.cfg,
                                  self.tree.num_final_states)
 
     def results_from_device(

@@ -15,9 +15,13 @@ slice-B pruning (root select, deferred emission, root-arc cap).
 Its keyword knobs are ``bench.py``'s environment knobs (``BENCH_LM_ORDER``,
 ``BENCH_SKIP_SCOPE``, ``BENCH_ACROSS``, ``BENCH_CTX_GROUPS``,
 ``BENCH_LA_ORDER``, ``BENCH_LA_CLASSES``, ``BENCH_LA_SMOOTH``,
-``BENCH_LA_UPDATE``, ``BENCH_BRANCH_WIDTH``) with their defaults, so at
-the defaults the network, LM and decode are the benchmark's headline
-ones.
+``BENCH_LA_UPDATE``, ``BENCH_BRANCH_WIDTH``, ``BENCH_SCORER``,
+``BENCH_NN_DTYPE``) with their defaults, so at the defaults the network,
+LM and decode are the benchmark's headline ones. ``scorer="conformer"``
+is bench.py's hybrid conformer (``bench.py:186-204``): d=512, 12 blocks,
+8 heads, bf16 products, priors drawn where the GMMs would be; its weights
+are the port's own draws from ``seed`` (``models.nn.init_params``, flax's
+initializers), not JAX's.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from .models.tying import StateTying
 from .device import resolve
 from .models.gmm import MixtureSet
 from .models.lm.ngram import compile_ngram
-from .models.scorer import GmmFeatureScorer
+from .models.nn import ConformerEncoderNet, NnHybridScorer, StatePriors, init_params
+from .models.scorer import FeatureScorer, GmmFeatureScorer
 from .ops.frontend import FeatureFrontend, FrontendConfig
 from .search.decoder import BeamConfig, TreeDecoder
 from .search.lookahead import BigramLookahead, build_bigram_lookahead
@@ -91,7 +96,13 @@ SLICE_A_BEAM = BeamConfig(
 PATHS = {
     "across-word": dict(across_word=True, ctx_groups=4, la_order=2),
     "4-gram": dict(lm_order=4, la_order=3, skip_scope="word", lookahead_update="survivor"),
+    # bench.py's BENCH_SCORER=conformer: the headline network and LM
+    "conformer": dict(scorer="conformer"),
 }
+
+#: bench.py's conformer widths (``bench.py:192-195``; ff_mult and the conv
+#: kernel at ConformerEncoderNet's defaults)
+CONFORMER = dict(d_model=512, num_blocks=12, num_heads=8, ff_mult=4, conv_kernel=15)
 
 
 def auto_branch_width(tree: PrefixTree, beam: BeamConfig) -> int:
@@ -107,13 +118,13 @@ def auto_branch_width(tree: PrefixTree, beam: BeamConfig) -> int:
 
 class Setup(NamedTuple):
     frontend: FeatureFrontend
-    scorer: GmmFeatureScorer
+    scorer: FeatureScorer
     decoder: TreeDecoder
     tree: PrefixTree
     lexicon: Lexicon
     lm: NgramLm
     tying: HashTying
-    mixtures: MixtureSet
+    mixtures: Optional[MixtureSet]  # None under the conformer
     lda: np.ndarray
     beam: BeamConfig  # as the decoder runs it (branch_width resolved)
     bigram_la: Optional[BigramLookahead] = None
@@ -137,14 +148,22 @@ def build_setup(
     la_smooth: float = 0.0,
     lookahead_update: str = "arc",
     branch_width: int = -1,
+    scorer: str = "gmm",
+    nn_dtype: str = "bfloat16",
+    conformer: dict = CONFORMER,
 ) -> Setup:
     """The benchmark setup. ``lm_order`` > 2 extends the bigrams to
     higher orders (``bench.py:116-126``); ``la_order`` >= 2 builds the
     word-set bigram lookahead (3: trigram pair anchors) with
     ``la_classes`` history classes and softmin ``la_smooth``; the decoder
     runs ``beam`` with its ``lookahead_update`` and its ``branch_width``
-    replaced, -1 meaning bench.py's auto rule (:func:`auto_branch_width`)."""
+    replaced, -1 meaning bench.py's auto rule (:func:`auto_branch_width`).
+    ``scorer`` is ``"gmm"`` (``densities`` per class) or ``"conformer"``
+    (``ConformerEncoderNet(**conformer)`` computing in ``nn_dtype``, the
+    hybrid scorer at scale 10)."""
     device = resolve(device)
+    if scorer not in ("gmm", "conformer"):
+        raise ValueError(f"scorer must be 'gmm' or 'conformer', got {scorer!r}")
     rng = np.random.default_rng(seed)
     lex = Lexicon()
     build_default_silence(lex)
@@ -201,16 +220,26 @@ def build_setup(
         beam, lookahead_update=lookahead_update,
         branch_width=auto_branch_width(tree, beam) if branch_width < 0 else branch_width,
     )
-    ms = MixtureSet(
-        means=rng.normal(size=(num_classes, densities, feat_dim)).astype(np.float32),
-        variances=(0.5 + rng.uniform(size=(num_classes, densities, feat_dim))).astype(np.float32),
-        weights=np.full((num_classes, densities), 1.0 / densities, np.float32),
-        num_densities=np.full(num_classes, densities, np.int32),
-    )
+    ms = None
+    if scorer == "conformer":
+        # the priors take the place of the GMM draws (bench.py's order)
+        net = init_params(ConformerEncoderNet(num_classes, feat_dim, **conformer,
+                                              compute_dtype=nn_dtype, device=device), seed)
+        priors = StatePriors.from_counts(rng.uniform(1, 10, size=num_classes).astype(np.float32))
+        acoustic = NnHybridScorer(net, None, priors, scale=10.0, device=device)
+    else:
+        ms = MixtureSet(
+            means=rng.normal(size=(num_classes, densities, feat_dim)).astype(np.float32),
+            variances=(0.5 + rng.uniform(size=(num_classes, densities, feat_dim)))
+            .astype(np.float32),
+            weights=np.full((num_classes, densities), 1.0 / densities, np.float32),
+            num_densities=np.full(num_classes, densities, np.int32),
+        )
+        acoustic = GmmFeatureScorer(ms, scale=1.0, device=device)
     lda = (rng.normal(size=(16 * 9, feat_dim)) * 0.1).astype(np.float32)
     return Setup(
         frontend=FeatureFrontend(FrontendConfig(), splice_context=4, lda=lda, device=device),
-        scorer=GmmFeatureScorer(ms, scale=1.0, device=device),
+        scorer=acoustic,
         decoder=TreeDecoder(tree, compile_ngram(lm), beam, bigram_la=bla, device=device),
         tree=tree, lexicon=lex, lm=lm, tying=tying, mixtures=ms, lda=lda, beam=beam,
         bigram_la=bla,

@@ -40,7 +40,11 @@ from rasr_tpu_torch.ops.kernels.wordend import (  # noqa: E402
 )
 from rasr_tpu_torch.examples import gather_microbench, wordend_microbench  # noqa: E402
 from rasr_tpu_torch.models.lm.ngram import compile_ngram  # noqa: E402
+from rasr_tpu_torch.models.nn import (  # noqa: E402
+    BlstmEncoderNet, ConformerEncoderNet, init_params,
+)
 from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder  # noqa: E402
+from rasr_tpu_torch.search.streaming import StreamingDecoder  # noqa: E402
 from rasr_tpu_torch.synthetic import PATHS, build_setup  # noqa: E402
 
 
@@ -216,7 +220,7 @@ SLICE_C_WIDTH = {"across-word": 96, "4-gram": 24}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("path", sorted(SLICE_C_WIDTH))
 def test_slice_c_path_on_card_equals_cpu(card, path):
     """One setup built once; its decoder on the card and a decoder of the
     same network, LM and lookahead on the CPU decode the same scores."""
@@ -235,6 +239,66 @@ def test_slice_c_path_on_card_equals_cpu(card, path):
     assert all(r.words for r in b)
     assert [r.words for r in a] == [r.words for r in b]
     np.testing.assert_allclose([r.score for r in a], [r.score for r in b], rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conformer_on_card_equals_cpu(card, dtype):
+    """The same weights on the card and on the CPU, ragged lengths
+    (valid frames compared): float32 without TF32 to float32 rounding;
+    bf16 within a few bf16 ulps of logits within |5| (the card's and the
+    CPU's products round the same sums taken in other orders)."""
+    kw = dict(d_model=64, num_blocks=2, num_heads=4, conv_kernel=15, compute_dtype=dtype)
+    on_cpu = init_params(ConformerEncoderNet(40, 45, device="cpu", **kw), 2)
+    on_card = ConformerEncoderNet(40, 45, device=card, **kw)
+    on_card.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(3, 120, 45)).astype(np.float32))
+    lengths = torch.tensor([120, 77, 31])
+    with torch.no_grad():
+        got = on_card(x.to(card), lengths=lengths.to(card)).cpu()
+        want = on_cpu(x, lengths=lengths)
+    valid = torch.arange(120)[None, :] < lengths[:, None]
+    assert bool(torch.isfinite(got).all())
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=0, atol=0.0625)
+    torch.testing.assert_close(got[valid], want[valid], **tol)
+
+
+@pytest.mark.cuda
+def test_blstm_on_card_equals_cpu(card):
+    """cuDNN's packed bidirectional LSTM against the CPU's, ragged lengths."""
+    on_cpu = init_params(BlstmEncoderNet(30, 45, hidden=(64, 32), device="cpu"), 5)
+    on_card = BlstmEncoderNet(30, 45, hidden=(64, 32), device=card)
+    on_card.load_state_dict(on_cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(3, 90, 45)).astype(np.float32))
+    lengths = torch.tensor([90, 61, 7])
+    with torch.no_grad():
+        got = on_card(x.to(card), lengths=lengths).cpu()
+        want = on_cpu(x, lengths=lengths)
+    valid = torch.arange(90)[None, :] < lengths[:, None]
+    torch.testing.assert_close(got[valid], want[valid], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_streamed_equals_offline_on_card(card):
+    """Blocks of 16 frames (the last one short) over ragged declared
+    lengths under the scaled-down production beam: the offline results."""
+    beam = BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=4, branch_hyps=16,
+                      root_arc_limit=12, root_select=48, deferred_emission=True, lm_scale=10.0)
+    s = build_setup(num_words=80, num_phones=12, num_classes=150, densities=4, beam=beam,
+                    device=card)
+    x = torch.from_numpy((np.random.default_rng(7).normal(size=(3, 12000)) * 0.1)
+                         .astype(np.float32)).to(card)
+    feats, n = s.frontend(x, torch.tensor([12000, 9000, 5000], device=card))
+    e = s.scorer(feats)
+    want = s.decoder.decode_scores(e, n)
+    sd = StreamingDecoder(s.decoder).restart(3, n)
+    for lo in range(0, e.shape[1], 16):
+        sd.feed(e[:, lo:lo + 16])
+    got = sd.finalize()
+    assert [r.words for r in got] == [r.words for r in want]
+    assert [r.word_ends for r in got] == [r.word_ends for r in want]
+    np.testing.assert_allclose([r.score for r in got], [r.score for r in want], rtol=1e-6)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

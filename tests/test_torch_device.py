@@ -15,10 +15,15 @@ from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
 from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
 from rasr_tpu_torch.models.lm.arpa import NgramLm
 from rasr_tpu_torch.models.lm.ngram import compile_ngram
+from rasr_tpu_torch.models.nn import (
+    BlstmEncoderNet, ConformerBlock, ConformerEncoderNet, ConvFrontendNet, FeedForwardNet,
+    NnHybridScorer, StatePriors,
+)
 from rasr_tpu_torch.models.scorer import GmmFeatureScorer, PrecomputedScorer
 from rasr_tpu_torch.models.tying import MonophoneStateTying
 from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig, make_params
 from rasr_tpu_torch.search.decoder import TreeDecoder, tree_to_device
+from rasr_tpu_torch.search.streaming import StreamingDecoder
 from rasr_tpu_torch.search.tree import build_prefix_tree
 from rasr_tpu_torch.synthetic import build_setup
 
@@ -43,9 +48,20 @@ def _tree_and_lm():
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         return [obj]
+    if isinstance(obj, list):
+        return obj
     if isinstance(obj, torch.nn.Module):
-        return list(obj.buffers())
+        return list(obj.buffers()) + list(obj.parameters())
     return [v for v in vars(obj).values() if isinstance(v, torch.Tensor)]
+
+
+def _streaming(**kw):
+    """A stream restarted on the decoder's device: its carry."""
+    sd = StreamingDecoder(TreeDecoder(*_tree_and_lm(), **kw)).restart(2)
+    return [*sd._carry, sd._n_frames]
+
+
+SMALL_CONFORMER = dict(d_model=8, num_blocks=1, num_heads=2, ff_mult=2, conv_kernel=3)
 
 
 ENTRY_POINTS = {
@@ -61,6 +77,18 @@ ENTRY_POINTS = {
                                                         **kw)._scores,
     "scoring_tensors_from_jax": lambda **kw: convert.scoring_tensors_from_jax(
         make_scoring_tensors(_mixtures(), device="cpu"), **kw),
+    "build_setup-conformer": lambda **kw: build_setup(
+        num_words=10, num_phones=4, num_classes=12, scorer="conformer",
+        conformer=SMALL_CONFORMER, **kw).scorer,
+    "NnHybridScorer": lambda **kw: NnHybridScorer(
+        FeedForwardNet(3, 4, hidden=(5,), device="cpu"), None,
+        StatePriors.from_counts(np.ones(3)), **kw),
+    "FeedForwardNet": lambda **kw: FeedForwardNet(3, 4, hidden=(5,), **kw),
+    "ConvFrontendNet": lambda **kw: ConvFrontendNet(3, 4, channels=(2,), hidden=(5,), **kw),
+    "BlstmEncoderNet": lambda **kw: BlstmEncoderNet(3, 4, hidden=(2,), **kw),
+    "ConformerBlock": lambda **kw: ConformerBlock(8, num_heads=2, conv_kernel=3, **kw),
+    "ConformerEncoderNet": lambda **kw: ConformerEncoderNet(3, 4, **SMALL_CONFORMER, **kw),
+    "StreamingDecoder": _streaming,
 }
 
 

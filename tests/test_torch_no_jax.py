@@ -2,8 +2,9 @@
 
 A subprocess makes ``jax`` and the JAX package ``rasr_tpu`` unimportable,
 imports every module of ``rasr_tpu_torch`` and drives a tiny decode slice
-on the CPU, on the within-word tree and on the across-word network with
-4 context groups, bigram lookahead and compact branch slots. The port
+on the CPU, on the within-word tree, on the across-word network with 4
+context groups, bigram lookahead and compact branch slots, and behind a
+small conformer hybrid scorer; each decode is also streamed in blocks. The port
 carries its own copies of the host modules, so it loads no module of
 ``rasr_tpu``.
 """
@@ -25,17 +26,25 @@ import rasr_tpu_torch
 for m in pkgutil.walk_packages(rasr_tpu_torch.__path__, "rasr_tpu_torch."):
     importlib.import_module(m.name)
 from rasr_tpu_torch.search.decoder import BeamConfig
+from rasr_tpu_torch.search.streaming import StreamingDecoder
 from rasr_tpu_torch.synthetic import PATHS, build_setup
 beam = BeamConfig(max_hyps=32, word_end_limit=8, root_hyps=4, branch_hyps=8, lm_scale=10.0)
 x = torch.from_numpy((np.random.default_rng(0).normal(size=(2, 8000)) * 0.1)
                      .astype(np.float32))
-for knobs in ({}, dict(PATHS["across-word"], branch_width=40)):
+conformer = dict(d_model=16, num_blocks=1, num_heads=2, ff_mult=2, conv_kernel=3)
+for knobs in ({}, dict(PATHS["across-word"], branch_width=40),
+              dict(PATHS["conformer"], conformer=conformer)):
     s = build_setup(num_words=30, num_phones=8, num_classes=50, densities=2, beam=beam,
                     device="cpu", **knobs)
-    assert (s.bigram_la is not None) == bool(knobs)
+    assert (s.bigram_la is not None) == ("across_word" in knobs)
     feats, n = s.frontend(x, torch.tensor([8000, 6000]))
-    res = s.decoder.results_from_device(s.decoder.decode_scores_device(s.scorer(feats), n))
+    e = s.scorer(feats, lengths=n)
+    res = s.decoder.results_from_device(s.decoder.decode_scores_device(e, n))
     assert len(res) == 2 and all(np.isfinite(r.score) and r.words for r in res), res
+    sd = StreamingDecoder(s.decoder).restart(2, n)
+    for lo in range(0, e.shape[1], 16):
+        sd.feed(e[:, lo:lo + 16])
+    assert [r.words for r in sd.finalize()] == [r.words for r in res]
 print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu."))))
 """
 

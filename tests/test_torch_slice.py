@@ -8,16 +8,22 @@ natively by the port. All three must recognise the same words: under
 decoder slice A's plain pruning, under bench.py's production pruning
 (root select, deferred emission, root-arc cap) scaled down, and on the
 across-word network with 4 context groups, bigram lookahead and compact
-branch slots.
+branch slots. A fourth pipeline puts a small conformer hybrid scorer
+(float32, flax's parameters carried across) in front of the decoder.
 """
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from rasr_tpu.models.gmm import MixtureSet as JaxMixtureSet
+from rasr_tpu.models.nn import ConformerEncoderNet as JaxConformer
+from rasr_tpu.models.nn import NnHybridScorer as JaxNnHybridScorer
+from rasr_tpu.models.nn import StatePriors as JaxStatePriors
 from rasr_tpu.models.hmm import HmmTopology, TransitionModel
 from rasr_tpu.models.lm.ngram_tpu import compile_ngram as jax_compile_ngram
 from rasr_tpu.models.scorer import GmmFeatureScorer as JaxGmmScorer
@@ -44,16 +50,22 @@ BEAM_B = dict(BEAM, root_arc_limit=10, root_select=24, deferred_emission=True)
 ACROSS = dict(PATHS["across-word"], branch_width=96)
 
 
+def _jax_tree(s, across_word=False):
+    """The JAX package's network of a ``build_setup`` result."""
+    lm = s.lm
+    unigrams = {wid: lm.ngrams[(wid,)][0] for wid in lm.vocab.values()}
+    return jax_build_prefix_tree(
+        s.lexicon, s.tying, HmmTopology(states_per_phone=3, silence_states=1),
+        TransitionModel(), lm_vocab=lm.vocab, lm_unigrams=unigrams, skip_scope="phone",
+        across_word=across_word,
+    )
+
+
 def _pipelines(BEAM, **knobs):
     s = build_setup(num_words=60, num_phones=12, num_classes=120, densities=4,
                     beam=BeamConfig(**BEAM), device="cpu", **knobs)
     lm = s.lm
-    unigrams = {wid: lm.ngrams[(wid,)][0] for wid in lm.vocab.values()}
-    jtree = jax_build_prefix_tree(
-        s.lexicon, s.tying, HmmTopology(states_per_phone=3, silence_states=1),
-        TransitionModel(), lm_vocab=lm.vocab, lm_unigrams=unigrams, skip_scope="phone",
-        across_word=knobs.get("across_word", False),
-    )
+    jtree = _jax_tree(s, knobs.get("across_word", False))
     bla = (None if s.bigram_la is None
            else jax_build_bigram_lookahead(jtree, lm, num_classes=64, order=2))
     beam = dataclasses.asdict(s.beam)  # the knobs' branch_width and lookahead update
@@ -84,19 +96,19 @@ def pipelines():
 
 
 def _assert_audio_to_words_equal(pipelines):
-    jax_side, carried, native = pipelines
+    jax_side, *ports = pipelines
     rng = np.random.default_rng(7)
     lengths = np.array([16000, 11200, 7300])
     x = (rng.normal(size=(3, 16000)) * 0.1).astype(np.float32)
     jfe, jsc, jdec = jax_side
     jfeats, jn = jfe(x, lengths)
-    want = jdec.decode_scores(jsc(jfeats), np.asarray(jn))
+    want = jdec.decode_scores(jsc(jfeats, lengths=jn), np.asarray(jn))
     assert all(r.words for r in want)
-    for fe, sc, dec in (carried, native):
+    for fe, sc, dec in ports:
         feats, n = fe(torch.from_numpy(x), torch.from_numpy(lengths))
         np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
         np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=2e-4, atol=2e-4)
-        got = dec.results_from_device(dec.decode_scores_device(sc(feats), n))
+        got = dec.results_from_device(dec.decode_scores_device(sc(feats, lengths=n), n))
         for a, b in zip(got, want):
             assert a.words == b.words
             assert a.word_ends == b.word_ends
@@ -139,6 +151,24 @@ def test_audio_to_words_across_word_port_equals_jax():
     assert decoder.bla is not None and decoder.bla.deep
     assert BEAM["branch_hyps"] * decoder.tables.branch_degree > ACROSS["branch_width"]
     _assert_audio_to_words_equal(pipes)
+
+
+def test_audio_to_words_conformer_port_equals_jax():
+    """Audio -> MFCC -> a conformer hybrid scorer (d=32, 2 blocks, float32,
+    ragged lengths; flax's parameters in the port's network) -> the
+    production pruning scaled down -> words."""
+    widths = dict(d_model=32, num_blocks=2, num_heads=4, ff_mult=4, conv_kernel=5)
+    s = build_setup(num_words=60, num_phones=12, num_classes=120, beam=BeamConfig(**BEAM_B),
+                    device="cpu", scorer="conformer", nn_dtype="float32", conformer=widths)
+    assert s.mixtures is None and s.scorer.num_classes == 120
+    jnet = JaxConformer(num_classes=120, **widths)
+    params = jnet.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 45), jnp.float32))["params"]
+    s.scorer.model.load_state_dict(convert.nn_params_from_flax(s.scorer.model, params))
+    priors = JaxStatePriors(s.scorer.log_priors.numpy())
+    jax_side = (JaxFrontend(JaxFrontendConfig(), splice_context=4, lda=s.lda),
+                JaxNnHybridScorer(jnet, params, priors, scale=10.0),
+                JaxTreeDecoder(_jax_tree(s), jax_compile_ngram(s.lm), JaxBeamConfig(**BEAM_B)))
+    _assert_audio_to_words_equal((jax_side, (s.frontend, s.scorer, s.decoder)))
 
 
 def test_build_setup_applies_bench_branch_width_rule():
