@@ -32,20 +32,31 @@ counters set to 0 just before it and read just after:
   float32 one;
 - the streaming path (``rasr_tpu_torch.examples.streaming_bench``): the
   main path's decoder fed its GMM emissions of 64 x 998 frames in blocks
-  of 16, 32 and 128 frames, each stream equal to the offline decode.
+  of 16, 32 and 128 frames, each stream equal to the offline decode;
+- the recognizer path: ``OfflineRecognizer`` over a synthesized Bliss
+  corpus of 64 wavs of 3-10 s (orths from the main path's lexicon) with
+  the main path's setup, once best-only and once writing a lattice
+  archive and a CTM file; its words must be ``decode_scores``' on the
+  same features, each lattice must hold its best path (oracle WER 0) and
+  the archive must give back the lattices built from the decode;
+- the bench path: ``python -m rasr_tpu_torch.bench``'s ``run`` at its
+  defaults (both canaries, then 3 windows of 3 batches of 64 x 10 s).
 
 A small batch decoded on the card and on the CPU must agree on every
-path. Prints per-stage times tagged with the card's name and power
-limit, one JSON line of kernel records, and as its last line
+path, and so must the lattices of a 4 x 3 s batch. Prints per-stage
+times tagged with the card's name and power limit, one JSON line of
+kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs a CUDA card and the
 repository beside it.
 """
 
+import contextlib
+import io
 import json
 import os
-import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -71,6 +82,7 @@ SLICE_A_BATCH = 16  # slice A at reduced depth: one timed batch
 #: the slice-C paths (``synthetic.PATHS``): batch, and whether a full
 #: warm-up batch precedes the timed one (else a 1-s one)
 SLICE_C = {"across-word": (BATCH, True), "4-gram": (16, False)}
+RECOGNIZER_SEGMENTS = 64  # one batch of 3-10 s wavs
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -100,14 +112,6 @@ def conformer_flop(cfg: dict, in_dim: int, classes: int, T: int):
     d, L, ff, k = cfg["d_model"], cfg["num_blocks"], cfg["ff_mult"], cfg["conv_kernel"]
     block = 2 * 2 * d * ff * d + 4 * d * d + d * 2 * d + d * d + d * k + T * d  # MACs
     return 2.0 * (in_dim * d + L * block + d * classes), 2.0 * L * T * d
-
-
-def card_tag() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -143,17 +147,16 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from rasr_tpu_torch import _build
-    from rasr_tpu_torch.device import cuda_device, cuda_graph_ms, cuda_ms
-    from rasr_tpu_torch.corpus.lexicon import Lexicon, build_default_silence
+    from rasr_tpu_torch import _build, bench
+    from rasr_tpu_torch.corpus.audio import write_wav
+    from rasr_tpu_torch.corpus.bliss import CorpusDescription
+    from rasr_tpu_torch.device import card_tag, cuda_device, cuda_graph_ms, cuda_ms
     from rasr_tpu_torch.examples import gather_microbench, streaming_bench, wordend_microbench
-    from rasr_tpu_torch.models.allophone import Allophone, AllophoneState
+    from rasr_tpu_torch.lattice.evaluator import lattice_oracle
+    from rasr_tpu_torch.lattice.lattice import Lattice, decoder_lattice
     from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
-    from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
-    from rasr_tpu_torch.models.lm.arpa import NgramLm
     from rasr_tpu_torch.models.lm.ngram import compile_ngram
     from rasr_tpu_torch.models.nn import ConformerEncoderNet, NnHybridScorer, StatePriors
-    from rasr_tpu_torch.models.tying import MonophoneStateTying
     from rasr_tpu_torch.ops.frontend import (
         FrontendConfig, frame_signal, make_params, num_frames, preemphasize,
     )
@@ -163,15 +166,17 @@ def main() -> int:
     )
     from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain
     from rasr_tpu_torch.ops.kernels.wordend import WORD_NONE, wordend_block, wordend_block_plain
-    from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
-    from rasr_tpu_torch.search.tree import build_prefix_tree
+    from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+    from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
+    from rasr_tpu_torch.search.decoder import TreeDecoder, traceback
     from rasr_tpu_torch.synthetic import CONFORMER, PATHS, SLICE_A_BEAM, build_setup
+    from rasr_tpu_torch.utils.archive import FileArchive
 
     dev = cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = card_tag()
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     counted = (gmm_scores, mfcc_frames, wordend_block, row_gather)
 
     def say(msg):
@@ -355,38 +360,7 @@ def main() -> int:
         f"launches {ga_launches}")
 
     # ------------------------- planted canary under both bench.py configs
-    lex = Lexicon()
-    build_default_silence(lex)
-    lex.add_lemma(["AB"], [(["a", "b"], 0.0)])
-    lex.add_lemma(["BA"], [(["b", "a"], 0.0)])
-    topo = HmmTopology(states_per_phone=1, silence_states=1)
-    tying = MonophoneStateTying(lex, topo)
-    lm = NgramLm.train_from_text([["AB", "BA"], ["BA", "AB"]], order=2)
-    tree = build_prefix_tree(lex, tying, topo, TransitionModel(), lm_vocab=lm.vocab)
-
-    def cls_of(sym):
-        return tying.classify(AllophoneState(Allophone(lex.phonemes[sym].id), 0))
-
-    seq = [cls_of("si")] * 2 + [cls_of("a")] * 2 + [cls_of("b")] * 2
-    emis = np.full((1, len(seq), tying.num_classes), 50.0, np.float32)
-    for t, c in enumerate(seq):
-        emis[0, t, c] = 0.0
-    # the across-word network of the same lexicon: the monophone tying
-    # collapses its contexts, so it reads the same
-    across = build_prefix_tree(lex, tying, topo, TransitionModel(), lm_vocab=lm.vocab,
-                               across_word=True)
-    for net in (tree, across):
-        for canary_beam in (  # bench.py:332-337
-            BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5),
-            BeamConfig(max_hyps=64, word_end_limit=16, lm_scale=0.5, root_hyps=4,
-                       root_select=8, root_arc_limit=2, branch_hyps=16, deferred_emission=True),
-        ):
-            dec = TreeDecoder(net, compile_ngram(lm), canary_beam, device=dev)
-            (res,) = dec.decode_scores(torch.from_numpy(emis).to(dev), np.array([len(seq)]))
-            got_words = [lemma.primary_orth for lemma in res.lemmas]
-            if got_words != ["[SILENCE]", "AB"] or res.word_ends != [1, 5]:
-                raise AssertionError(f"planted canary ({net.num_final_states} final states, "
-                                     f"{canary_beam}): {got_words} @ {res.word_ends}")
+    bench.planted_canary(dev)
     say("canary ok: [SILENCE] AB @ [1, 5] (plain + rsel/defer/caps; within-word + across-word)")
 
     # ------------------------------------------------------ decode paths
@@ -435,7 +409,23 @@ def main() -> int:
     check_outputs(f, e, nf, results, BATCH)
     report("main path (production beam)", stage, TIMED_BATCHES, BATCH, launches, peak)
     say(f"sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
-    del f, e, results
+    # the best-path read of a decoded batch, warm: the device walk and its
+    # one payload (the walk alone in CUDA events)
+    handle = s.decoder.decode_scores_device(e, nf)
+    torch.cuda.synchronize()
+    read_s = []
+    for _ in range(5):
+        t_a = time.time()
+        again = s.decoder.results_from_device(handle)
+        read_s.append(time.time() - t_a)
+    if [r.words for r in again] != [r.words for r in results]:
+        raise AssertionError("a second decode of the batch read other words")
+    walk_ms = cuda_ms(lambda: traceback(handle), 5)
+    say(f"results_from_device warm (B={BATCH}, {T} frames, {len(read_s)} reads): median "
+        f"{np.median(read_s) * 1e3:.2f} ms, min {min(read_s) * 1e3:.2f} ms; the walk "
+        f"{walk_ms:.2f} ms (CUDA events, 5 calls); payload {tuple(traceback(handle).shape)} "
+        f"int32; longest chain {max(len(r.record_ids) for r in results)} word ends")
+    del f, e, results, handle, again
 
     # slice A: the same setup without the slice-B pruning, reduced depth
     dec_a = TreeDecoder(s.tree, compile_ngram(s.lm), SLICE_A_BEAM, device=dev)
@@ -532,6 +522,108 @@ def main() -> int:
             f"current_best {row['current_best_ms_warm']:.2f} ms warm; streamed == offline")
     say(f"streaming launches {stream_launches}; peak device memory {peak / 2**30:.2f} GiB")
 
+    # ------------ the recognizer path: a corpus on disk, best-only and with lattices
+    corpus_dir = tempfile.TemporaryDirectory()
+    words = [lemma.primary_orth for lemma in s.lexicon.lemmata if not lemma.special]
+    xml, audio_total = ['<corpus name="smoke">'], 0.0
+    for i, dur in enumerate(rng.uniform(3.0, 10.0, size=RECOGNIZER_SEGMENTS)):
+        wav = os.path.join(corpus_dir.name, f"r{i}.wav")
+        write_wav(wav, (rng.normal(size=int(dur * 16000)) * 0.1).astype(np.float32))
+        audio_total += int(dur * 16000) / 16000
+        orth = " ".join(rng.choice(words, size=int(rng.integers(2, 13))))
+        xml.append(f'<recording name="r{i}" audio="{wav}"><segment name="s"><orth>{orth}</orth>'
+                   f"</segment></recording>")
+    corpus_path = os.path.join(corpus_dir.name, "smoke.corpus")
+    with open(corpus_path, "w") as fh:
+        fh.write("".join(xml) + "</corpus>")
+    corpus = CorpusDescription.load(corpus_path)
+    lat_path = os.path.join(corpus_dir.name, "lattices")
+    rec_runs = {}
+    for label, kw in (("best-only", {}),
+                      ("lattices + CTM", dict(lattice_archive=lat_path,
+                                              ctm_file=os.path.join(corpus_dir.name, "ctm")))):
+        recognizer = OfflineRecognizer(s.frontend, s.scorer, s.decoder, **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        t_a = time.time()
+        rec_results = recognizer.run(CorpusVisitor(corpus, batch_size=RECOGNIZER_SEGMENTS))
+        wall = time.time() - t_a
+        counts = read_counts(f"recognizer path ({label})", gmm_scores, mfcc_frames)
+        rec_runs[label] = {r.segment_name: r for r in rec_results}
+        say(f"recognizer ({label}): {len(rec_results)} segments, {audio_total:.1f} audio-s in "
+            f"{wall:.2f} s: {audio_total / wall:.1f} audio-s/s; WER "
+            f"{recognizer.evaluator.report()['wer']:.3f} (random models); launches {counts}")
+    if [r.words for r in rec_runs["best-only"].values()] != [
+            r.words for r in rec_runs["lattices + CTM"].values()]:
+        raise AssertionError("the recognizer's two runs read other words")
+    # the same batch through the decoder directly: the same words; its
+    # handle's record pull and the host lattice builds, timed
+    (batch,) = list(CorpusVisitor(corpus, batch_size=RECOGNIZER_SEGMENTS).batches())
+    fb, nb = s.frontend(batch.samples, batch.lengths)
+    handle = s.decoder.decode_scores_device(s.scorer(fb), nb)
+    direct = s.decoder.results_from_device(handle, batch.names)
+    for r in direct:
+        got = rec_runs["best-only"][r.segment_name]
+        if got.words != r.words or got.score != r.score:
+            raise AssertionError(f"recognizer vs decode_scores ({r.segment_name}): {got.words} "
+                                 f"{got.score} vs {r.words} {r.score}")
+    t_a = time.time()
+    host = handle.records_to_host()
+    pull_ms = (time.time() - t_a) * 1e3
+    pulled_mb = sum(x.nbytes for x in host.records + host.finals) / 1e6
+    t_a = time.time()
+    lattices = [decoder_lattice(handle, s.tree.lemmas, b) for b in range(len(direct))]
+    build_ms = (time.time() - t_a) * 1e3
+    t_a = time.time()
+    complete = ((handle.finals.fstate < handle.num_final_states)
+                & (handle.finals.fscore < 1e29)).any(dim=1).tolist()
+    checked = 0
+    for lat, r, done in zip(lattices, direct, complete):
+        if done and r.record_ids:
+            errors = lattice_oracle(lat, r.words)[0]
+            if errors:
+                raise AssertionError(f"lattice of {r.segment_name} misses its best path "
+                                     f"({errors} oracle errors)")
+            checked += 1
+    oracle_s = time.time() - t_a
+    if not checked:
+        raise AssertionError("no lattice holds a complete best path")
+    with FileArchive(lat_path, "r") as ar:
+        if sorted(ar.keys()) != sorted(batch.names):
+            raise AssertionError("the lattice archive lacks segments")
+        for seg_name, lat in zip(batch.names, lattices):
+            back = Lattice.unpack(ar.read(seg_name))
+            if (back.num_nodes, back.node_time.tolist(), sorted(back.final_scores)) != (
+                    lat.num_nodes, lat.node_time.tolist(), sorted(lat.final_scores)) or [
+                    (a.from_node, a.to_node, a.lemma) for a in back.arcs] != [
+                    (a.from_node, a.to_node, a.lemma) for a in lat.arcs]:
+                raise AssertionError(f"archived lattice of {seg_name} differs from the built one")
+            check_close(f"archived lattice scores of {seg_name}",
+                        torch.tensor([(a.am_score, a.lm_score) for a in back.arcs]).reshape(-1, 2),
+                        torch.tensor([(a.am_score, a.lm_score) for a in lat.arcs]).reshape(-1, 2),
+                        1e-6, 0.0)
+    arcs = [len(lat.arcs) for lat in lattices]
+    say(f"recognizer == decode_scores on {len(direct)} segments; record pull {pull_ms:.1f} ms "
+        f"({pulled_mb:.1f} MB), host lattice build {build_ms:.1f} ms per batch of "
+        f"{len(direct)} (arcs per lattice median {int(np.median(arcs))}, max {max(arcs)}); "
+        f"oracle WER 0 on {checked} lattices ({oracle_s:.1f} s); archive round trip equal")
+    corpus_dir.cleanup()
+    del fb, handle, host, lattices
+
+    # --------------------------------- the bench path: python -m rasr_tpu_torch.bench
+    reset_counts()
+    out = io.StringIO()
+    t_a = time.time()
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        record_b = bench.run(dev, out=out)
+    bench_launches = read_counts("bench path", gmm_scores, mfcc_frames)
+    for line in err.getvalue().splitlines():
+        say(line)
+    say(f"bench entry {time.time() - t_a:.1f} s, launches {bench_launches}: "
+        f"{out.getvalue().strip()}")
+    if record_b["metric"] != "torch_decode_throughput" or not record_b["value"] > 0:
+        raise AssertionError(f"bench entry: {record_b}")
+
     # --------------------- CUDA decode == CPU decode, every beam and path
     small = int(3.0 * 16000)
     x2 = samples[:2, :small]
@@ -579,6 +671,29 @@ def main() -> int:
                 raise AssertionError(
                     f"cuda vs cpu decode ({label}): {a.words} {a.score} vs {b.words} {b.score}")
         say(f"cuda == cpu decode ({label}) on B=2 x 3 s: {[r.orth[:40] for r in on_card]}")
+    # the lattices of a 4 x 3 s batch from a CUDA and a CPU decode
+    f4, nf4 = s.frontend(samples[:4, :small], torch.full((4,), small, device=dev))
+    e4 = s.scorer(f4)
+    h_card = s.decoder.decode_scores_device(e4, nf4)
+    h_cpu = s_cpu.decoder.decode_scores_device(e4.cpu(), nf4.cpu())
+    n_arcs = 0
+    for b in range(4):
+        la, lb = (decoder_lattice(h, s.tree.lemmas, b) for h in (h_card, h_cpu))
+        if (la.num_nodes, la.node_time.tolist(), sorted(la.final_scores)) != (
+                lb.num_nodes, lb.node_time.tolist(), sorted(lb.final_scores)) or [
+                (a.from_node, a.to_node, a.lemma) for a in la.arcs] != [
+                (a.from_node, a.to_node, a.lemma) for a in lb.arcs]:
+            raise AssertionError(f"cuda vs cpu lattice {b}: other nodes or arcs")
+        got = torch.tensor([(a.am_score, a.lm_score) for a in la.arcs]
+                           + [(la.final_scores[k], 0.0) for k in sorted(la.final_scores)])
+        want = torch.tensor([(a.am_score, a.lm_score) for a in lb.arcs]
+                            + [(lb.final_scores[k], 0.0) for k in sorted(lb.final_scores)])
+        if bool(((got - want).abs() > DECODE_RTOL * want.abs().clamp(min=1.0)).any()):
+            raise AssertionError(f"cuda vs cpu lattice {b}: scores off by more than "
+                                 f"{DECODE_RTOL} relative")
+        n_arcs += len(la.arcs)
+    say(f"cuda == cpu lattices on B=4 x 3 s: {n_arcs} arcs, the same nodes and arcs, scores "
+        f"within {DECODE_RTOL} relative")
 
     record = {"kernels": [
         {"name": "gmm_scores", "route": "cuda", "source": "rasr_tpu_torch/csrc/gmm_fused.cu",
@@ -606,7 +721,7 @@ def main() -> int:
     print(json.dumps(record))
     print(tag)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count(),
     }}))
     return 0
 

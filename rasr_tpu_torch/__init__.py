@@ -5,15 +5,20 @@ every Pallas kernel of the ported path is a hand-written CUDA kernel for
 ``sm_90a`` under ``csrc/``, built with nvcc at first use
 (``_build.py``). Imports ``torch`` and never ``jax``, nor ``rasr_tpu``:
 it carries its own copies of the JAX-free host modules (lexicon, HMM
-topology, tying, allophones, ARPA parsing).
+topology, tying, allophones, ARPA parsing, statistics, logging, cache
+archives, audio input, Bliss corpora, the evaluator).
 
 Ported so far (the decode paths): ``ops.frontend`` (MFCC / CMVN / splice
 / LDA), ``models.gmm`` + ``models.scorer`` (GMM scoring), ``models.nn``
 (NN acoustic models and the hybrid scorer), ``models.lm.ngram``
 (hash-table n-gram LM), ``search.tree`` (the within-word and across-word
 networks), ``search.lookahead`` (bigram / trigram LM lookahead),
-``search.decoder`` (frame-synchronous beam search) and
-``search.streaming`` (block-feed online decoding).
+``search.decoder`` (frame-synchronous beam search, the best path walked
+back on the device), ``search.streaming`` (block-feed online decoding),
+``lattice`` (word lattices from a decode's records, WER and the lattice
+oracle), ``pipeline`` (corpus visitor, feature caches and the offline
+recognizer) and ``bench`` (``python -m rasr_tpu_torch.bench``, the
+counterpart of ``bench.py``).
 """
 
 __version__ = "0.1.0"

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -22,6 +24,18 @@ def resolve(device=None) -> torch.device:
     port's entry points run on the card unless the caller names another
     device, as the CPU tests do with ``device="cpu"``."""
     return cuda_device() if device is None else torch.device(device)
+
+
+def card_tag() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a
+    card set below its full power runs slower under load: every number
+    measured on it carries this tag)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]
 
 
 def cuda_ms(fn, reps: int) -> float:

@@ -54,7 +54,12 @@ The frame loop is a Python loop over a block of frames from a global
 frame ``t0`` (``_decode_block``); ``n_frames`` stays on the device. The
 offline decode is one block over the whole utterance, a stream
 (``search/streaming.py``) one block per feed, and both end in the same
-frontier finalize (``TreeDecoder._finalize``).
+finalize (``TreeDecoder._finalize``): the offline decode takes the finals
+frozen at each utterance's last declared frame (the start hypothesis when
+that frame was never decoded), a stream the live beam of utterances whose
+end it has not reached. The best path is walked back on the device
+(:func:`traceback`); its one host payload is the reference's
+``[min(T, 512) + 1, B, 3]`` int32 array.
 """
 
 from __future__ import annotations
@@ -391,14 +396,16 @@ class Carry(NamedTuple):
 
 
 class Records(NamedTuple):
-    """Per-frame word-end records ``[T, B, R]`` (the traceback store)."""
+    """Per-frame word-end records ``[T, B, R]`` (the traceback store). The
+    integer columns are int32, as the reference's: record ids ``t * R + r``,
+    lemma, word and LM state ids all stay below 2^31."""
 
-    lemma: torch.Tensor  # i64, -1 = none
+    lemma: torch.Tensor  # i32, -1 = none
     score: torch.Tensor  # f32
-    prev: torch.Tensor  # i64 predecessor record id, -1 = start
+    prev: torch.Tensor  # i32 predecessor record id, -1 = start
     lmcost: torch.Tensor  # f32
-    word: torch.Tensor  # i64
-    lm: torch.Tensor  # i64 LM state after the word
+    word: torch.Tensor  # i32
+    lm: torch.Tensor  # i32 LM state after the word
 
 
 def init_carry(B: int, cfg: BeamConfig, lm: NgramTables, device) -> Carry:
@@ -802,7 +809,17 @@ class _Step:
         )
 
 
-class DeviceDecode(NamedTuple):
+class HostRecords(NamedTuple):
+    """A decode's traceback records and final beams on the host, as the
+    lattice builder reads them (``lattice.lattice_from_records``)."""
+
+    records: tuple  # (lemma, score, prev, lmcost, word, lm) [T, B, R]
+    finals: tuple  # (state, lm, score, bp, end_cost) [B, K]
+    n_frames: np.ndarray  # [B]
+
+
+@dataclasses.dataclass(eq=False)
+class DeviceDecode:
     """Handle of one dispatched decode: the best hypothesis per utterance,
     the records its traceback walks and the final beams with their
     ``</s>`` costs (the lattice's inputs). Each handle owns its records."""
@@ -813,6 +830,23 @@ class DeviceDecode(NamedTuple):
     finals: Carry
     end_cost: torch.Tensor  # [B, K] scaled </s> cost of the finals
     word_end_limit: int
+    n_frames: torch.Tensor  # [B] declared frames
+    num_final_states: int
+    _host: Optional[HostRecords] = dataclasses.field(default=None, repr=False)
+
+    def records_to_host(self) -> HostRecords:
+        """The six record columns, the final beams and ``n_frames`` copied
+        to the host, once per handle (the lattice path; the best path
+        needs only :func:`traceback`'s payload)."""
+        if self._host is None:
+            f = self.finals
+            self._host = HostRecords(
+                tuple(r.cpu().numpy() for r in self.records),
+                tuple(x.cpu().numpy() for x in (f.fstate, f.flm, f.fscore, f.fbp,
+                                                 self.end_cost)),
+                self.n_frames.cpu().numpy(),
+            )
+        return self._host
 
 
 def _decode_block(step: _Step, c: Carry, emissions: torch.Tensor, t0: int,
@@ -828,19 +862,17 @@ def _decode_block(step: _Step, c: Carry, emissions: torch.Tensor, t0: int,
     def rec(dtype, fill):
         return torch.full((Tb, B, R), fill, dtype=dtype, device=dev)
 
-    recs = Records(rec(torch.int64, -1), rec(torch.float32, BIG), rec(torch.int64, -1),
-                   rec(torch.float32, 0.0), rec(torch.int64, WORD_NONE), rec(torch.int64, -1))
+    recs = Records(rec(torch.int32, -1), rec(torch.float32, BIG), rec(torch.int32, -1),
+                   rec(torch.float32, 0.0), rec(torch.int32, WORD_NONE), rec(torch.int32, -1))
     for i in range(Tb):
         c = step(c, emissions[:, i], t0 + i, n_frames, recs, i)
     return c, recs
 
 
-def _best_and_records(lm, prep, recs: Records, c: Carry, cfg: BeamConfig,
-                      nfinal: int = 1) -> DeviceDecode:
+def _best(lm, prep, c: Carry, cfg: BeamConfig, nfinal: int):
     """Final best-hypothesis selection (the ``</s>`` cost applied to
     complete hypotheses at a final state; the best incomplete one when
-    there is none)."""
-    B, K = c.fstate.shape
+    there is none): ``(best_score, best_bp, end_cost)``."""
     end_cost, _ = lookup_prepared(
         lm, prep, c.flm, torch.full_like(c.flm, max(lm.end_word, 0))
     )
@@ -853,22 +885,53 @@ def _best_and_records(lm, prep, recs: Records, c: Carry, cfg: BeamConfig,
     incomplete = best_score >= BIG / 2
     best_score = torch.where(incomplete, c.fscore.gather(1, fb_idx)[:, 0], best_score)
     best_bp = torch.where(incomplete, c.fbp.gather(1, fb_idx)[:, 0], best_bp)
-    return DeviceDecode(best_score, best_bp, recs, c, end_cost, cfg.word_end_limit)
+    return best_score, best_bp, end_cost
 
 
-def _walk(best_bp: np.ndarray, lemma: np.ndarray, prev: np.ndarray, R: int,
-          maxw: int):
-    """Traceback walk (host): per utterance, the (lemma, frame, record)
-    chain from the best hypothesis back to the start, end-first."""
-    out = []
-    for b, bp in enumerate(best_bp):
-        chain = []
-        while bp >= 0 and len(chain) < maxw:
-            t, r = divmod(int(bp), R)
-            chain.append((int(lemma[t, b, r]), t, int(bp)))
-            bp = prev[t, b, r]
-        out.append(chain)
-    return out
+#: the walk's length cap (the reference's ``min(T, 512)`` scan)
+MAX_WALK = 512
+#: walk steps dispatched between two reads of "every chain has ended"
+WALK_CHUNK = 32
+
+
+def traceback(handle: DeviceDecode) -> torch.Tensor:
+    """The best paths walked back on the device: the reference's one host
+    payload, ``[min(T, 512) + 1, B, 3]`` int32. Row i holds each
+    utterance's i-th word end from the end, ``(lemma, frame, record id)``,
+    -1 past the chain's start; the last row is the best score's float32
+    bits. The walk gathers each step's predecessor from the ``prev``
+    column laid out per utterance, and stops after the chunk of steps in
+    which every chain reached its start (one device read per chunk)."""
+    recs = handle.records
+    T, B, R = recs.lemma.shape
+    n = T * R  # record ids are t * R + r; n is "no record"
+    dev = recs.lemma.device
+
+    def per_utt(col):  # [T, B, R] -> [B, n + 1], column n = none
+        return torch.cat([col.permute(1, 0, 2).reshape(B, n),
+                          torch.full((B, 1), -1, dtype=col.dtype, device=dev)], dim=1)
+
+    nxt = per_utt(recs.prev).to(torch.int64)
+    nxt = torch.where(nxt >= 0, nxt, n)
+    at = torch.where(handle.best_bp >= 0, handle.best_bp, n)[:, None]
+    maxw = min(T, MAX_WALK)
+    steps = []
+    while len(steps) < maxw:
+        for _ in range(min(WALK_CHUNK, maxw - len(steps))):
+            steps.append(at)
+            at = nxt.gather(1, at)
+        if not bool((at < n).any()):
+            break
+    ids = torch.cat(steps, dim=1)  # [B, steps]
+    live = ids < n
+    walk = torch.full((maxw + 1, B, 3), -1, dtype=torch.int32, device=dev)
+    walk[: ids.shape[1]] = torch.stack([
+        per_utt(recs.lemma).gather(1, ids),
+        torch.where(live, torch.div(ids, R, rounding_mode="floor"), -1),
+        torch.where(live, ids, -1),
+    ], dim=-1).transpose(0, 1).to(torch.int32)
+    walk[maxw] = handle.best_score.view(torch.int32)[:, None]
+    return walk
 
 
 @dataclasses.dataclass
@@ -954,10 +1017,10 @@ class TreeDecoder:
             raise NotImplementedError("sharded / beam-partitioned decoding is not ported yet")
         emissions = torch.as_tensor(emissions, dtype=torch.float32, device=self.device)
         n_frames = torch.as_tensor(n_frames, device=self.device).to(torch.int64)
-        B, T, _M = emissions.shape
+        B, _T, _M = emissions.shape
         carry, recs = _decode_block(self._step(), init_carry(B, self.cfg, self.lm, self.device),
                                     emissions, 0, n_frames)
-        return self._finalize(carry, [recs], n_frames <= T)
+        return self._finalize(carry, [recs], n_frames)
 
     def _step(self) -> _Step:
         """The frame step over this decoder's tables and beam."""
@@ -965,36 +1028,39 @@ class TreeDecoder:
         return _Step(self.tables, self.lm, self.lm_prep, self.cfg, self.tree.max_word_ends,
                      min(self.cfg.root_hyps, K), min(self.cfg.branch_hyps or K, K), self.bla)
 
-    def _finalize(self, c: Carry, blocks: Sequence[Records],
-                  captured: torch.Tensor) -> DeviceDecode:
-        """The best hypotheses at the frontier (the counterpart of the
-        reference's ``_finalize_stream``): utterances whose declared length
-        was reached (``captured``) take the finals frozen at their last
-        frame, the others the live beam. The blocks' records join in frame
-        order."""
-        cap = captured[:, None]
-        finals = c._replace(
-            fstate=torch.where(cap, c.fstate, c.state), flm=torch.where(cap, c.flm, c.lms),
-            fscore=torch.where(cap, c.fscore, c.score), fbp=torch.where(cap, c.fbp, c.bp))
+    def _finalize(self, c: Carry, blocks: Sequence[Records], n_frames: torch.Tensor,
+                  live: Optional[torch.Tensor] = None) -> DeviceDecode:
+        """The best hypotheses of a decode. Each utterance takes the finals
+        frozen at its last declared frame (the start hypothesis when that
+        frame was never decoded, as the reference's offline scan does),
+        except the utterances a stream marks ``live`` (the counterpart of
+        the reference's ``_finalize_stream``): those take the live beam at
+        the frontier. The blocks' records join in frame order."""
+        if live is not None:
+            lv = live[:, None]
+            c = c._replace(
+                fstate=torch.where(lv, c.state, c.fstate), flm=torch.where(lv, c.lms, c.flm),
+                fscore=torch.where(lv, c.score, c.fscore), fbp=torch.where(lv, c.bp, c.fbp))
         recs = blocks[0] if len(blocks) == 1 else Records(*(torch.cat(r) for r in zip(*blocks)))
-        return _best_and_records(self.lm, self.lm_prep, recs, finals, self.cfg,
-                                 self.tree.num_final_states)
+        best_score, best_bp, end_cost = _best(self.lm, self.lm_prep, c, self.cfg,
+                                              self.tree.num_final_states)
+        return DeviceDecode(best_score, best_bp, recs, c, end_cost, self.cfg.word_end_limit,
+                            n_frames, self.tree.num_final_states)
 
     def results_from_device(
         self, handle: DeviceDecode, names: Optional[Sequence[str]] = None
     ) -> List[DecodeResult]:
-        """Pull a decode's best paths to the host and assemble results."""
-        best_score = handle.best_score.cpu().numpy()
-        best_bp = handle.best_bp.cpu().numpy()
-        lemma = handle.records.lemma.cpu().numpy()
-        prev = handle.records.prev.cpu().numpy()
-        T = lemma.shape[0]
-        names = names or [f"utt{i}" for i in range(len(best_bp))]
-        chains = _walk(best_bp, lemma, prev, handle.word_end_limit, min(T, 512))
+        """Walk a decode's best paths on the device and assemble results
+        from the one payload read to the host (:func:`traceback`)."""
+        payload = traceback(handle).cpu().numpy()
+        walk = payload[:-1]  # [MAXW, B, 3] (lemma, frame, record id), end-first
+        best_score = payload[-1, :, 0].view(np.float32)
+        chain = (walk[:, :, 2] >= 0).sum(axis=0)  # each chain's rows lead the walk
+        names = names or [f"utt{i}" for i in range(walk.shape[1])]
         results = []
-        for b, chain in enumerate(chains):
+        for b in range(walk.shape[1]):
             lemmas, words, ends, rec_ids = [], [], [], []
-            for li, t, rid in reversed(chain):
+            for li, t, rid in walk[: chain[b], b][::-1].tolist():
                 if li < 0:
                     continue
                 lemma_obj = self.tree.lemmas[li]

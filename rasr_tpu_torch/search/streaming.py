@@ -7,8 +7,9 @@ the best sentences so far available at any time from
 block from the frames fed so far (``decoder._decode_block``, the very
 loop of the offline decode), so a stream that covers each utterance's
 frames gives the offline results exactly. ``current_best()`` finalizes
-the frontier without touching the live beam: the finalize reads the
-carry and copies the records.
+the frontier without touching the live beam: utterances whose declared
+end was not reached yet take the live beam, and the finalize reads the
+carry and joins the records.
 
 The reference pads its record buffers to 256-frame buckets to bound the
 finalize's XLA compiles; eager PyTorch compiles nothing per shape, so
@@ -89,7 +90,8 @@ class StreamingDecoder:
         ``decoder.results_from_device``); the stream goes on unchanged."""
         if not self._recs:
             raise RuntimeError("no frames fed")
-        return self.dec._finalize(self._carry, self._recs, self._n_frames <= self._t)
+        return self.dec._finalize(self._carry, self._recs, self._n_frames,
+                                  live=self._n_frames > self._t)
 
     def current_best(self, names: Optional[Sequence[str]] = None) -> List[DecodeResult]:
         """Best sentences so far, without disturbing the live beam (ref:

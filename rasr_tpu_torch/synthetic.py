@@ -16,7 +16,7 @@ Its keyword knobs are ``bench.py``'s environment knobs (``BENCH_LM_ORDER``,
 ``BENCH_SKIP_SCOPE``, ``BENCH_ACROSS``, ``BENCH_CTX_GROUPS``,
 ``BENCH_LA_ORDER``, ``BENCH_LA_CLASSES``, ``BENCH_LA_SMOOTH``,
 ``BENCH_LA_UPDATE``, ``BENCH_BRANCH_WIDTH``, ``BENCH_SCORER``,
-``BENCH_NN_DTYPE``) with their defaults, so at the defaults the network,
+``BENCH_NN_DTYPE``, ``BENCH_NET_CACHE``) with their defaults, so at the defaults the network,
 LM and decode are the benchmark's headline ones. ``scorer="conformer"``
 is bench.py's hybrid conformer (``bench.py:186-204``): d=512, 12 blocks,
 8 heads, bf16 products, priors drawn where the GMMs would be; its weights
@@ -27,6 +27,7 @@ initializers), not JAX's.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -43,7 +44,7 @@ from .models.scorer import FeatureScorer, GmmFeatureScorer
 from .ops.frontend import FeatureFrontend, FrontendConfig
 from .search.decoder import BeamConfig, TreeDecoder
 from .search.lookahead import BigramLookahead, build_bigram_lookahead
-from .search.tree import PrefixTree, build_prefix_tree
+from .search.tree import PrefixTree, build_prefix_tree, load_tree, save_tree
 
 
 class HashTying(StateTying):
@@ -151,6 +152,7 @@ def build_setup(
     scorer: str = "gmm",
     nn_dtype: str = "bfloat16",
     conformer: dict = CONFORMER,
+    net_cache: str = "",
 ) -> Setup:
     """The benchmark setup. ``lm_order`` > 2 extends the bigrams to
     higher orders (``bench.py:116-126``); ``la_order`` >= 2 builds the
@@ -160,7 +162,10 @@ def build_setup(
     replaced, -1 meaning bench.py's auto rule (:func:`auto_branch_width`).
     ``scorer`` is ``"gmm"`` (``densities`` per class) or ``"conformer"``
     (``ConformerEncoderNet(**conformer)`` computing in ``nn_dtype``, the
-    hybrid scorer at scale 10)."""
+    hybrid scorer at scale 10). ``net_cache`` is bench.py's
+    ``BENCH_NET_CACHE`` (``bench.py:131-141``): the network image to load
+    when it exists, else to save after the build (the caller keys the
+    path by configuration; a lexicon that does not match raises)."""
     device = resolve(device)
     if scorer not in ("gmm", "conformer"):
         raise ValueError(f"scorer must be 'gmm' or 'conformer', got {scorer!r}")
@@ -206,10 +211,15 @@ def build_setup(
                 ngrams[g] = (ngrams[g][0], float(rng.uniform(0.2, 1.5)))
     lm = NgramLm(lm_order, vocab, ngrams)
     unigrams = {wid: ngrams[(wid,)][0] for wid in vocab.values()}
-    tree = build_prefix_tree(
-        lex, tying, topology, TransitionModel(), lm_vocab=vocab,
-        lm_unigrams=unigrams, across_word=across_word, skip_scope=skip_scope,
-    )
+    if net_cache and os.path.exists(net_cache):
+        tree = load_tree(net_cache, lex)
+    else:
+        tree = build_prefix_tree(
+            lex, tying, topology, TransitionModel(), lm_vocab=vocab,
+            lm_unigrams=unigrams, across_word=across_word, skip_scope=skip_scope,
+        )
+        if net_cache:
+            save_tree(tree, net_cache)
     bla = None
     if la_order >= 2:
         bla = build_bigram_lookahead(tree, lm, num_classes=la_classes,

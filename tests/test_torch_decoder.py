@@ -36,7 +36,9 @@ from rasr_tpu.search.lookahead import build_bigram_lookahead as jax_build_bigram
 from rasr_tpu.search.tree import build_prefix_tree as jax_build_prefix_tree
 from rasr_tpu_torch import convert
 from rasr_tpu_torch.models.lm.ngram import compile_ngram
-from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder, _Step, tree_to_device
+from rasr_tpu_torch.search.decoder import (
+    BeamConfig, TreeDecoder, _Step, traceback, tree_to_device,
+)
 from rasr_tpu_torch.search.lookahead import build_bigram_lookahead
 from rasr_tpu_torch.search.tree import build_prefix_tree
 from rasr_tpu_torch.synthetic import HashTying
@@ -153,14 +155,16 @@ BINDING = {
 }
 
 
-def _assert_port_equals_jax(jtree, ttree, lm, num_classes, kw, seed, bla=(None, None)):
-    """Decode the same tie-free random emissions with the JAX decoder and
-    the port under ``kw`` (and the lookahead pair ``bla``, JAX's and the
-    port's): same words, word ends, record chains and scores, the same R
-    records in every frame and the same final beams."""
+def _assert_port_equals_jax(jtree, ttree, lm, num_classes, kw, seed, bla=(None, None),
+                            n=(14, 11, 9)):
+    """Decode the same tie-free random emissions (14 frames) with the JAX
+    decoder and the port under ``kw`` (and the lookahead pair ``bla``,
+    JAX's and the port's) and the declared lengths ``n``: same words, word
+    ends, record chains and scores, the same R records in every frame and
+    the same final beams."""
     rng = np.random.default_rng(seed)
     emis = rng.uniform(0.0, 6.0, size=(3, 14, num_classes)).astype(np.float32)
-    n = np.array([14, 11, 9])
+    n = np.array(n)
     jax_decoder = jdec.TreeDecoder(jtree, jax_compile_ngram(lm), jdec.BeamConfig(**kw),
                                    bigram_la=bla[0])
     want = jax_decoder.decode_scores(emis, n)
@@ -288,6 +292,84 @@ def test_matches_jax_slice_b(slice_b_systems, monkeypatch, name):
             assert len(np.unique(live)) == len(live)
 
 
+def test_offline_finals_when_n_frames_exceeds_the_frames(slice_b_systems):
+    """A declared length past the emissions' last frame: the offline
+    decode takes the finals frozen at the last declared frame, which never
+    came, so that utterance ends in the start hypothesis, as the
+    reference's offline scan does (the streaming decoder's
+    ``current_best`` instead takes the live beam at the frontier). The
+    fixture of ``tests/test_torch_streaming.py::_slice_b_decoder``."""
+    name = "root-select-deferred"
+    homophones, kw = SLICE_B[name]
+    tying, lm, jtree, ttree, _ = slice_b_systems[homophones]
+    _assert_port_equals_jax(jtree, ttree, lm, tying.num_classes, kw,
+                            100 + sorted(SLICE_B).index(name), n=(17, 14, 9))
+
+
+#: decodes whose traceback payload is held against the reference's: every
+#: slice-B option (and declared lengths past the last frame) and the
+#: slice-C networks and lookaheads
+WALKS = {
+    **{f"slice-b:{k}": ("b", k, (14, 11, 9)) for k in sorted(SLICE_B)},
+    "slice-b:n-frames-past-the-end": ("b", "root-select-deferred", (17, 14, 9)),
+}
+
+
+def _walk_case(systems, kind, name):
+    """(JAX decoder, port decoder, emissions) of a slice-B or slice-C
+    parity case, with its emission draw."""
+    if kind == "b":
+        homophones, kw = SLICE_B[name]
+        tying, lm, jtree, ttree, _ = systems[homophones]
+        seed, M, bla = (104 if name == "rank-lm-homophones" else 100 + sorted(SLICE_B).index(name),
+                        tying.num_classes, (None, None))
+    else:
+        network, la, kw = SLICE_C[name]
+        lm, (jtree, ttree), las = systems[network]
+        seed, M, bla = 200 + sorted(SLICE_C).index(name), 20011, las[la] if la else (None, None)
+    emis = np.random.default_rng(seed).uniform(0.0, 6.0, size=(3, 14, M)).astype(np.float32)
+    return (jdec.TreeDecoder(jtree, jax_compile_ngram(lm), jdec.BeamConfig(**kw),
+                             bigram_la=bla[0]),
+            TreeDecoder(ttree, compile_ngram(lm), BeamConfig(**kw), bigram_la=bla[1],
+                        device="cpu"),
+            emis)
+
+
+def _assert_walk_equals_reference(jax_decoder, decoder, emis, n):
+    """The port's device walk is the reference's host payload: the same
+    (lemma, frame, record id) rows and the best scores in the last row;
+    ``results_from_device`` reads nothing else from the device."""
+    want = np.asarray(jax_decoder.decode_scores_device(emis, np.array(n)))
+    handle = decoder.decode_scores_device(emis, np.array(n))
+    for col in (handle.records.lemma, handle.records.prev, handle.records.word,
+                handle.records.lm):
+        assert col.dtype == torch.int32
+    got = traceback(handle)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == (15, 3, 3)
+    np.testing.assert_array_equal(got[:-1].numpy(), want[:-1])
+    np.testing.assert_allclose(got[-1].numpy().view(np.float32),
+                               want[-1].view(np.float32), rtol=1e-4)
+    pulled = []
+    cpu = torch.Tensor.cpu
+
+    def spy(self, *args, **kw):
+        pulled.append(tuple(self.shape))
+        return cpu(self, *args, **kw)
+
+    torch.Tensor.cpu = spy
+    try:
+        decoder.results_from_device(handle)
+    finally:
+        torch.Tensor.cpu = cpu
+    assert pulled == [want.shape]
+
+
+@pytest.mark.parametrize("case", sorted(WALKS))
+def test_device_walk_equals_reference_slice_b(slice_b_systems, case):
+    kind, name, n = WALKS[case]
+    _assert_walk_equals_reference(*_walk_case(slice_b_systems, kind, name), n)
+
+
 @pytest.fixture(scope="module")
 def slice_c_systems(slice_b_systems):
     """The slice-B homophone system as three networks, each as the JAX
@@ -385,6 +467,11 @@ def test_matches_jax_slice_c(slice_c_systems, monkeypatch, name):
             assert len(np.unique(live)) == len(live)
     if name.startswith("compact"):
         assert any(overflow) == (name == "compact-binding")
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_C))
+def test_device_walk_equals_reference_slice_c(slice_c_systems, name):
+    _assert_walk_equals_reference(*_walk_case(slice_c_systems, "c", name), (14, 11, 9))
 
 
 @pytest.mark.parametrize("option", [

@@ -1,17 +1,21 @@
 """The port's own copies of the host modules (lexicon, allophones, HMM,
-tying, ARPA n-gram LM, LM interface, XML input) behave like the
-reference's: each case makes the same calls on both sides and compares
-what comes back as plain data."""
+tying, ARPA n-gram LM, LM interface, XML input, statistics, logging,
+cache archives, audio input, Bliss corpora) behave like the reference's:
+each case makes the same calls on both sides and compares what comes
+back as plain data."""
 
 import gzip
 import importlib
+import json
 import math
+import os
 
 import numpy as np
 import pytest
 
 MODULES = ("corpus.lexicon", "models.allophone", "models.hmm", "models.tying",
-           "models.lm.arpa", "models.lm.interface", "utils.xmlio")
+           "models.lm.arpa", "models.lm.interface", "utils.xmlio", "utils.statistics",
+           "utils.logging", "utils.archive", "corpus.audio", "corpus.bliss")
 
 LEXICON_XML = """<?xml version="1.0" encoding="utf-8"?>
 <lexicon>
@@ -155,6 +159,140 @@ def case_lm_interface(m, tmp_path):
         cls.score(cls.start_history(), lm.vocab["C"])]
 
 
+def case_statistics(m, tmp_path):
+    st = m["utils.statistics"]
+    rng = np.random.default_rng(5)
+    a, b = st.Accumulator("a"), st.Accumulator("b")
+    for v in rng.normal(size=20):
+        a += float(v)
+    for v in rng.uniform(size=7):
+        b.add(float(v), weight=2.0)
+    empty = st.Accumulator().report()
+    a.merge(b)
+    h = st.Histogram(-1.0, 1.0, bins=8, name="h")
+    for v in rng.normal(size=50):
+        h.add(float(v))
+    reg = st.StatisticsRegistry()
+    reg.accumulator("x").add(3.0)
+    reg.accumulator("x").add(5.0)
+    reg.histogram("y", 0.0, 10.0, 4).add(7.5)
+    with st.Timer() as timer:
+        pass
+    return (a.report(), a.variance, empty, h.report(), [h.quantile(q) for q in (0.1, 0.5, 0.9)],
+            st.Histogram(0.0, 1.0).quantile(0.5), reg.report(), timer.elapsed >= 0.0)
+
+
+def case_logging(m, tmp_path):
+    lg = m["utils.logging"]
+    mgr = lg.LogManager()
+    path = tmp_path / "logs" / "run.jsonl"
+    mgr.open_jsonl(str(path))
+    stats = mgr.channel("recognizer", "statistics")
+    stats("recognized", segment="c/r/s", score=1.5, words=["A", "B"])
+    mgr.channel("recognizer", "log")("corpus done", wer=0.25)
+    with mgr.channel("trainer", "log").timed("epoch"):
+        pass
+    mgr.channel("x", "warning")()
+    mgr._jsonl.close()
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    for r in recs:
+        assert r.pop("t") >= 0 and r.pop("elapsed_s", 0.0) >= 0
+    return recs, stats.component, stats.kind
+
+
+def case_archive(m, tmp_path):
+    ar = m["utils.archive"]
+    rng = np.random.default_rng(9)
+    arrays = [rng.normal(size=(4, 3)).astype(np.float32), np.arange(10, dtype=np.int64),
+              rng.integers(0, 255, size=(2, 2, 2)).astype(np.uint8)]
+    p1, p2 = str(tmp_path / "one.cache"), str(tmp_path / "two.cache")
+    with ar.FileArchive(p1, "w") as a:
+        a.write("x", b"first")
+        a.write("big", b"ab" * 500)  # compressed
+        a.write("x", b"second")  # overwrite
+        a.write("gone", b"...")
+        a.delete("gone")
+        for i, x in enumerate(arrays):
+            a.write(f"arr{i}", ar.pack_ndarray(x))
+    with ar.FileArchive(p1, "r") as a:  # through the index sidecar
+        first = (sorted(a.keys()), a.read("x"), a.read("big"), "gone" in a,
+                 [ar.unpack_ndarray(a.read(f"arr{i}")).tolist() for i in range(3)])
+    os.remove(p1 + ".idx")
+    with ar.FileArchive(p1, "a") as a:  # rescanned, then appended to
+        rescanned = sorted(a.keys())
+        a.write("late", b"z")
+    with ar.FileArchive(p2, "w", compress=False) as a:
+        a.write("x", b"shadowed")
+        a.write("only2", b"ab" * 500)
+    bundle = tmp_path / "all.bundle"
+    bundle.write_text("# members\none.cache\n\n" + p2 + "\n")
+    b = ar.open_archive(str(bundle))
+    merged = (b.keys(), b.read("x"), b.read("only2"), "late" in b, "nope" in b)
+    b.close()
+    with open(p1, "rb") as fh, open(p2, "rb") as fh2:
+        images = (fh.read(), fh2.read())
+    return first, rescanned, merged, images
+
+
+def case_audio(m, tmp_path):
+    au = m["corpus.audio"]
+    rng = np.random.default_rng(2)
+    mono = (rng.normal(size=3000) * 0.3).astype(np.float32)
+    stereo = (rng.normal(size=(1000, 2)) * 0.3).astype(np.float32)
+    au.write_wav(str(tmp_path / "m.wav"), mono, 8000)
+    au.write_wav(str(tmp_path / "s.wav"), stereo)
+    (tmp_path / "r.raw").write_bytes((mono * 20000).astype("<i2").tobytes())
+    out = []
+    for name in ("m.wav", "s.wav", "r.raw"):
+        a = au.read_audio(str(tmp_path / name))
+        out.append((a.samples.tolist(), a.sample_rate, a.duration))
+        out.append(au.extract_segment(a, 0.01, 0.05, track=a.samples.ndim - 1).tolist())
+        out.append(au.extract_segment(a, 0.02, float("inf")).shape)
+    try:
+        au.read_audio(str(tmp_path / "x.flac"))
+    except (ValueError, OSError, RuntimeError) as exc:
+        out.append(type(exc).__name__)
+    return out
+
+
+CORPUS_XML = """<?xml version="1.0" encoding="utf-8"?>
+<corpus name="c">
+  <speaker-description name="s1"><gender>female</gender><age>40</age></speaker-description>
+  <recording name="r0" audio="r0.wav">
+    <segment name="a" start="0.5" end="2.0" track="1"><speaker name="s1"/>
+      <orth>  HELLO   WORLD </orth><condition name="quiet"/></segment>
+    <segment end="3.5"><orth>AGAIN</orth></segment>
+  </recording>
+  <subcorpus name="sub">
+    <include file="more.corpus"/>
+    <recording name="r1" audio="/abs/r1.wav"><segment name="b" start="1" end="2"/></recording>
+  </subcorpus>
+</corpus>
+"""
+
+MORE_XML = """<corpus name="more">
+  <recording name="r2" audio="r2.wav"><segment name="c"><orth>X Y</orth></segment>
+    <segment name="d" start="4" end="6"/></recording>
+</corpus>
+"""
+
+
+def case_bliss(m, tmp_path):
+    bliss = m["corpus.bliss"]
+    (tmp_path / "c.corpus.gz").write_bytes(gzip.compress(CORPUS_XML.encode()))
+    (tmp_path / "more.corpus").write_text(MORE_XML)
+    corpus = bliss.CorpusDescription.load(str(tmp_path / "c.corpus.gz"), audio_dir="audio")
+
+    def segs(*args):
+        return [(s.name, s.full_name, s.recording.full_name, s.recording.audio, s.start, s.end,
+                 s.track, s.orth, s.speaker, s.condition, s.duration)
+                for s in corpus.segments(*args)]
+
+    return (corpus.name, [(k, v.gender, v.attributes) for k, v in corpus.speakers.items()],
+            segs(), segs(0, 2), segs(1, 2), segs(2, 3), segs(0, 1, ["c/r0/a", "b", "nope"]),
+            corpus.statistics())
+
+
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
 
 
@@ -166,3 +304,22 @@ def test_host_module_matches_reference(case, tmp_path):
     want = CASES[case](_mods("rasr_tpu"), ref_dir)
     got = CASES[case](_mods("rasr_tpu_torch"), port_dir)
     assert got == want
+
+
+def test_log_managers_are_separate(tmp_path):
+    """The port's process-wide log manager is its own: a sink opened on it
+    leaves the reference's untouched, and the reverse."""
+    ours, theirs = (importlib.import_module(f"{r}.utils.logging").LogManager
+                    for r in ("rasr_tpu_torch", "rasr_tpu"))
+    assert ours.get() is ours.get() and ours.get() is not theirs.get()
+    saved = ours.get()._jsonl, theirs.get()._jsonl
+    try:
+        ours.get().open_jsonl(str(tmp_path / "port.jsonl"))
+        ours.get().channel("c", "statistics")("port only")
+        theirs.get()._jsonl = None
+        theirs.get().channel("c", "statistics")("reference only")
+        ours.get()._jsonl.close()
+        assert [json.loads(line)["msg"] for line in
+                (tmp_path / "port.jsonl").read_text().splitlines()] == ["port only"]
+    finally:
+        ours.get()._jsonl, theirs.get()._jsonl = saved
