@@ -39,8 +39,26 @@ counters set to 0 just before it and read just after:
   archive and a CTM file; its words must be ``decode_scores``' on the
   same features, each lattice must hold its best path (oracle WER 0) and
   the archive must give back the lattices built from the decode;
+- the fmllr path: the recognizer corpus (8 speakers) Viterbi-aligned,
+  per-speaker fMLLR statistics and transforms for 4 of its speakers, then
+  ``OfflineRecognizer(feature_transforms=...)`` with those transforms and
+  with identity ones (which must give the words of the plain run);
 - the bench path: ``python -m rasr_tpu_torch.bench``'s ``run`` at its
-  defaults (both canaries, then 3 windows of 3 batches of 64 x 10 s).
+  defaults at reduced depth (both canaries, then 2 windows of 2 batches
+  of 64 x 10 s);
+- the align-em path: the main path's setup on 64 x 10 s with orths of
+  8-20 words from its lexicon: features (MFCC kernel), flat-start labels,
+  one EM accumulate / estimate, a Viterbi realign (GMM kernel), Baum-Welch
+  posteriors and an LDA estimate from spliced features; the card's
+  alignments, posteriors and statistics against the CPU's, and the DP
+  loops' launches per frame under ``torch.profiler``;
+- the train-ce path: ``python -m rasr_tpu_torch.bench``'s ``BENCH_TRAIN=1``
+  step (the d=512 x 12-block conformer, bf16, B=16 x 400); a float32
+  conformer step on the card against the CPU, the bf16 loss falling over
+  20 steps, and a mid-epoch checkpoint resume bit-equal to a straight run;
+- the train-lfmmi path: LF-MMI and sMBR steps of the same conformer at
+  B=16 x 400 over a phone-bigram denominator of the main path's 40 phones;
+  the loss and emission gradients of B=2 on the card against the CPU's.
 
 A small batch decoded on the card and on the CPU must agree on every
 path, and so must the lattices of a 4 x 3 s batch. Prints per-stage
@@ -77,12 +95,36 @@ DECODE_RTOL = 1e-2
 NN_F32_RTOL, NN_F32_ATOL = 1e-4, 1e-2
 NN_BF16_RTOL, NN_BF16_ATOL = 1e-2, 1.0
 
+# the training side: Viterbi and Baum-Welch scores of the same emissions on
+# the card and the CPU (identical float ops in another order of launches),
+# EM / LDA / fMLLR statistics (float32 sums in another order: index_add_ and
+# products tiled otherwise), one float32 conformer step (cuBLAS vs the CPU's
+# sums, no TF32), LF-MMI and sMBR losses and emission gradients
+ALIGN_RTOL, EM_RTOL = 1e-4, 1e-4
+# Baum-Welch posteriors exp(-(alpha + beta - total)) of float32 costs near
+# 1e5 (10-s utterances) carry the rounding of the two recursions (T
+# roundings at an ulp of 0.0078): each frame's sum is 1 within
+# OCC_SQRT_T_ULPS x sqrt(T) ulps of the total in log, and the card's (its
+# own exp and log) are within GAMMA_ULPS ulps of the CPU's
+OCC_SQRT_T_ULPS, GAMMA_ULPS = 2, 4
+TRAIN_F32_RTOL, TRAIN_F32_ATOL = 1e-3, 1e-4
+LFMMI_RTOL = 1e-4
+
 BATCH, AUDIO_S, TIMED_BATCHES = 64, 10.0, 2
 SLICE_A_BATCH = 16  # slice A at reduced depth: one timed batch
 #: the slice-C paths (``synthetic.PATHS``): batch, and whether a full
 #: warm-up batch precedes the timed one (else a 1-s one)
 SLICE_C = {"across-word": (BATCH, True), "4-gram": (16, False)}
 RECOGNIZER_SEGMENTS = 64  # one batch of 3-10 s wavs
+RECOGNIZER_SPEAKERS, FMLLR_SPEAKERS = 8, 4  # fMLLR for 4 of the corpus's 8 speakers
+ALIGN_WORDS = (8, 21)  # words per 10-s utterance of the align-em path
+# the bf16 loss must fall by BF16_FALL nats over BF16_STEPS Adam steps (at
+# the default rate: 0.6 in 20 steps at d=32 on the CPU)
+BF16_STEPS, BF16_FALL, LFMMI_STEPS = 20, 0.2, 2
+# the bench entry at reduced depth (its defaults: 3 windows of 3 batches)
+BENCH_WINDOWS, BENCH_ITERS = 2, 2
+# Baum-Welch on the CPU for the first ALIGN_CPU_BW utterances of the batch
+ALIGN_CPU_BW = 16
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -101,17 +143,6 @@ def bound(flop: float, nbytes: float, tf32x3_flop: float = 0.0):
     t_op = max(flop / FP32_FLOPS, 3.0 * tf32x3_flop / TF32_FLOPS) * 1e3
     t_mem = nbytes / HBM_BYTES_S * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
-
-
-def conformer_flop(cfg: dict, in_dim: int, classes: int, T: int):
-    """(bf16, float32) FLOP per frame of ``ConformerEncoderNet(**cfg)``
-    over utterances of T frames: the projections, feed-forwards,
-    pointwise and depthwise convs and ``Q K^T`` in the compute dtype, the
-    attention weights times the values in float32 (flax's
-    ``force_fp32_for_softmax``)."""
-    d, L, ff, k = cfg["d_model"], cfg["num_blocks"], cfg["ff_mult"], cfg["conv_kernel"]
-    block = 2 * 2 * d * ff * d + 4 * d * d + d * 2 * d + d * d + d * k + T * d  # MACs
-    return 2.0 * (in_dim * d + L * block + d * classes), 2.0 * L * T * d
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -138,6 +169,460 @@ def check_equal(name, got, want) -> None:
             raise AssertionError(f"{name}: output {i} differs from the plain version")
 
 
+def profile_loop(fn, frames: int) -> dict:
+    """Kernel launches per frame, device ms and the device's busy share of
+    one ``fn()`` under ``torch.profiler`` (copies and memsets are not
+    launches; the profiler's own cost is in the wall time)."""
+    import torch
+
+    from rasr_tpu_torch.examples.profile_decode import busy_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_device = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [ev for ev in on_device if not ev.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel on the card")
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in on_device]
+    return {"launches_per_frame": len(kernels) / frames,
+            "device_ms": sum(ev.time_range.elapsed_us() for ev in on_device) / 1e3,
+            "wall_ms": wall_us / 1e3, "busy_share": busy_us(spans) / wall_us}
+
+
+def describe(prof: dict) -> str:
+    return (f"{prof['launches_per_frame']:.2f} launches per frame, device {prof['device_ms']:.1f} "
+            f"ms of {prof['wall_ms']:.1f} ms wall (busy {prof['busy_share']:.1%})")
+
+
+class Stages:
+    """Host-clock ms of named stages, each ending in a synchronize."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def __call__(self, name, fn):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def __str__(self):
+        return ", ".join(f"{k} {v:.1f} ms" for k, v in self.ms.items())
+
+
+def check_stats(name, got, want, rtol) -> float:
+    """Accumulated statistics (float64 numpy) within ``rtol`` of each entry
+    plus ``rtol`` of the largest magnitude; returns the largest error
+    relative to that magnitude."""
+    import numpy as np
+
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = np.abs(got - want)
+    if not np.isfinite(got).all() or bool((err > rtol * (np.abs(want) + scale)).any()):
+        raise AssertionError(f"{name}: off by up to {err.max():.3e} (scale {scale:.3e})")
+    return float(err.max() / scale)
+
+
+def align_em_phase(s, dev, samples, lengths, rng, say, reset_counts, read_counts):
+    """The classical training chain at the main path's width on 64 x 10 s:
+    features (the MFCC kernel), flat-start labels, one EM step, a Viterbi
+    realign (the GMM kernel), Baum-Welch posteriors, LDA; the card's
+    alignments and statistics against the CPU's."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.align.aligner import (
+        BatchAligner, _device_graphs, _gather_emissions, linear_segmentation,
+    )
+    from rasr_tpu_torch.align.graph import build_linear_graph
+    from rasr_tpu_torch.models.hmm import HmmTopology
+    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+    from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.ops.viterbi import BIG, forward_backward, viterbi_align
+    from rasr_tpu_torch.train import em, lda
+
+    B = samples.shape[0]
+    words = [lemma.primary_orth for lemma in s.lexicon.lemmata if not lemma.special]
+    topo = HmmTopology(states_per_phone=3, silence_states=1)
+    spliced_fe = FeatureFrontend(FrontendConfig(), splice_context=4, device=dev)
+    M, K, D = s.mixtures.means.shape
+
+    def chain(x, n, orths, st):
+        """The chain on audio ``x`` with lengths ``n``, each stage timed."""
+        out = {}
+        f, nf = out["feats"], out["n"] = st("features", lambda: s.frontend(x, n))
+        spliced = out["spliced"] = st("spliced features", lambda: spliced_fe(x, n))[0]
+        graphs = out["graphs"] = st("graphs (host)", lambda: [
+            build_linear_graph(o, s.lexicon, s.tying, topo) for o in orths])
+        n_host = out["n_host"] = nf.cpu().numpy()
+        labels = out["labels"] = st("linear segmentation (host)",
+                                    lambda: linear_segmentation(graphs, n_host))
+        acc = out["acc"] = st("EM accumulate", lambda: em.accumulate(
+            em.GmmAccumulator.zeros(M, K, D), s.mixtures, f, labels))
+        model = out["model"] = st("EM estimate (host)", lambda: em.estimate(acc, prev=s.mixtures))
+        scorer = GmmFeatureScorer(model, device=dev)
+        scores = out["scores"] = st("GMM scores", lambda: scorer(f))
+        als = out["als"] = st("Viterbi align", lambda: BatchAligner(scorer).align_scores(
+            scores, graphs, nf))
+        out["total"], out["gamma"], _ = st("Baum-Welch gamma", lambda: BatchAligner(
+            scorer, "baum-welch").gamma(f, graphs, nf))
+        vlabels = out["vlabels"] = np.full(labels.shape, -1, np.int32)
+        for i, a in enumerate(als):
+            vlabels[i, : a.num_frames] = a.emission_ids
+        scatter = out["scatter"] = st("LDA scatter", lambda: lda.accumulate_scatter(
+            lda.ScatterAccumulator.zeros(M, spliced.shape[-1]), spliced, vlabels))
+        out["proj"] = st("LDA estimate (host)", lambda: lda.estimate_lda(scatter, D))[0]
+        return out
+
+    # a small batch first: the first launch of each kernel and the first
+    # calls of the host solvers are not the chain's steady cost
+    chain(samples[:4, :32000], torch.full((4,), 32000, device=dev),
+          [" ".join(rng.choice(words, size=2)) for _ in range(4)], Stages())
+    orths = [" ".join(rng.choice(words, size=int(rng.integers(*ALIGN_WORDS)))) for _ in range(B)]
+    st = Stages()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    out = chain(samples, lengths, orths, st)
+    counts = read_counts("align-em path", gmm_scores, mfcc_frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    nf, n_host, graphs, scores = out["n"], out["n_host"], out["graphs"], out["scores"]
+    als, total, gamma, acc = out["als"], out["total"], out["gamma"], out["acc"]
+    T = int(n_host.max())
+    states = [g.num_states for g in graphs]
+    say(f"align-em B={B} x {T} frames, graphs of {min(states)}-{max(states)} states, "
+        f"{acc.count.sum():.0f} frames accumulated (after a 4 x 2 s warm-up): {st}")
+    realign_s = (st.ms["GMM scores"] + st.ms["Viterbi align"]) / 1e3
+    say(f"align-em Viterbi realign (GMM kernel + DP + host alignments) "
+        f"{B * AUDIO_S / realign_s:.1f} aligned audio-s/s; Baum-Welch "
+        f"{B * AUDIO_S / (st.ms['Baum-Welch gamma'] / 1e3):.1f} audio-s/s; EM accumulate + "
+        f"estimate {st.ms['EM accumulate'] + st.ms['EM estimate (host)']:.1f} ms per batch; "
+        f"launches {counts}; peak device memory {peak / 2**30:.2f} GiB")
+    # what came out: every utterance aligned, a model, an LDA; the Baum-Welch
+    # posteriors of each frame sum to 1 up to the float32 rounding of the
+    # two recursions, a random walk of T roundings of costs near the total:
+    # |log sum| within OCC_SQRT_T_ULPS x sqrt(T) ulps of the largest total
+    problems = []
+    if not all(np.isfinite(a.score) and a.score < BIG / 2 for a in als):
+        problems.append("an utterance did not align")
+    ulp = float(np.spacing(np.float32(np.abs(total).max())))
+    occ_err = float(np.abs(np.log(gamma.sum(-1)[:, :T])).max())
+    if not (np.isfinite(total).all() and occ_err <= OCC_SQRT_T_ULPS * np.sqrt(T) * ulp):
+        problems.append(f"Baum-Welch frame sums off 1 by {occ_err:.3e} in log")
+    model, proj = out["model"], out["proj"]
+    w = (model.weights * model.density_mask).sum(1)
+    if not (np.allclose(w, 1.0, atol=1e-5) and np.isfinite(proj).all()
+            and proj.shape == (out["spliced"].shape[-1], D)):
+        problems.append("the estimated GMM or LDA is malformed")
+    # the card's alignments and statistics against the CPU's, same inputs
+    cpu_als = BatchAligner(None).align_scores(scores.cpu(), graphs, n_host)
+    for a, b in zip(als, cpu_als):
+        if not np.array_equal(a.state_indices, b.state_indices):
+            problems.append(f"card vs cpu Viterbi states ({a.segment_name})")
+        if abs(a.score - b.score) > ALIGN_RTOL * abs(b.score):
+            problems.append(f"card vs cpu Viterbi score {a.score} vs {b.score}")
+    nb = ALIGN_CPU_BW
+    cpu_scores = scores[:nb].cpu()
+    cpu_total, cpu_gamma, _ = BatchAligner(lambda _: cpu_scores, "baum-welch").gamma(
+        None, graphs[:nb], n_host[:nb])
+    S_nb = cpu_gamma.shape[-1]
+    total_err = float(np.abs(total[:nb] - cpu_total).max() / np.abs(cpu_total).max())
+    gamma_err = float(np.abs(gamma[:nb, :, :S_nb] - cpu_gamma).max())
+    if total_err > ALIGN_RTOL or gamma_err > GAMMA_ULPS * ulp:
+        problems.append(f"card vs cpu Baum-Welch: totals {total_err:.2e} relative, posteriors "
+                        f"{gamma_err:.2e} (tolerance {GAMMA_ULPS * ulp:.2e})")
+    errs = {}
+    cpu_acc = em.accumulate(em.GmmAccumulator.zeros(M, K, D), s.mixtures, out["feats"].cpu(),
+                            out["labels"])
+    cpu_scatter = lda.accumulate_scatter(
+        lda.ScatterAccumulator.zeros(M, out["spliced"].shape[-1]), out["spliced"].cpu(),
+        out["vlabels"])
+    for kind, got, want, fields in (("EM", acc, cpu_acc, ("count", "sum", "sumsq")),
+                                    ("LDA", out["scatter"], cpu_scatter,
+                                     ("class_count", "class_sum", "total_sqsum"))):
+        for k in fields:
+            try:
+                errs[f"{kind} {k}"] = check_stats(f"{kind} {k} card vs cpu", getattr(got, k),
+                                                  getattr(want, k), EM_RTOL)
+            except AssertionError as exc:
+                problems.append(str(exc))
+    say(f"align-em card vs cpu: Viterbi states {'exact' if not problems else 'see below'} on "
+        f"{B} utterances; Baum-Welch (first {nb}) totals within {total_err:.2e} relative, "
+        f"posteriors max "
+        f"abs err {gamma_err:.2e} (tolerance {GAMMA_ULPS} ulps of the largest total, "
+        f"{GAMMA_ULPS * ulp:.2e}); frame sums within {occ_err:.2e} of 1 in log (bound "
+        f"{OCC_SQRT_T_ULPS * np.sqrt(T) * ulp:.2e}); statistics within "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" of their largest entry (tolerance {EM_RTOL} of the entry + {EM_RTOL} of the "
+        f"largest)")
+    if problems:
+        raise AssertionError("align-em: " + "; ".join(problems[:10]))
+    # the DP loops alone, on the emissions of the graph states
+    g = _device_graphs(graphs, dev)
+    emis = _gather_emissions(scores, g[0])
+    vit = profile_loop(lambda: viterbi_align(emis, *g[1:], nf), T)
+    fb = profile_loop(lambda: forward_backward(emis, *g[1:], nf), T)
+    say(f"align-em Viterbi loop (forward + backtrace, B={B} x {T} frames): {describe(vit)}")
+    say(f"align-em forward-backward loop: {describe(fb)}")
+    return counts
+
+
+def train_ce_phase(dev, rng, say, reset_counts, counted):
+    """bench.py's BENCH_TRAIN=1 step through the port's bench entry, then
+    the checks: one float32 step on the card == the CPU's, the bf16 loss
+    falling, a mid-epoch resume bit-equal."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch import bench
+    from rasr_tpu_torch.models.nn import ConformerEncoderNet, FeedForwardNet, init_params
+    from rasr_tpu_torch.synthetic import CONFORMER
+    from rasr_tpu_torch.train.checkpoint import CheckpointManager
+    from rasr_tpu_torch.train.nn_trainer import (
+        FrameDataset, NnTrainer, SequenceTrainer, TrainConfig,
+    )
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        record = bench.run(dev, out=out, train=True)
+    counts = {fn.__name__: fn.launches for fn in counted}
+    for line in err.getvalue().splitlines():
+        say(line)
+    say(f"train-ce bench entry {time.time() - t0:.1f} s, launches {counts} (no GMM or MFCC on "
+        f"this path): {out.getvalue().strip()}")
+    if record["metric"] != "torch_train_mfu" or not 0 < record["value"] < 100:
+        raise AssertionError(f"train-ce: {record}")
+
+    # one float32 step of a small conformer, card vs CPU
+    kw = dict(d_model=64, num_blocks=2, num_heads=4, conv_kernel=15)
+    on_cpu = init_params(ConformerEncoderNet(40, 45, device="cpu", **kw), 2)
+    on_card = ConformerEncoderNet(40, 45, device=dev, **kw)
+    on_card.load_state_dict(on_cpu.state_dict())
+    batch = (rng.normal(size=(4, 200, 45)).astype(np.float32),
+             rng.integers(0, 40, size=(4, 200)).astype(np.int32), np.ones((4, 200), np.float32))
+    for net, d in ((on_cpu, "cpu"), (on_card, dev)):
+        SequenceTrainer(net, 40, TrainConfig(learning_rate=0.05))._update(
+            *(torch.from_numpy(a).to(d) for a in batch))
+    step_err = max(check_close(f"train-ce float32 step card vs cpu: {k}", v.cpu(),
+                               on_cpu.state_dict()[k], TRAIN_F32_RTOL, TRAIN_F32_ATOL)
+                   for k, v in on_card.state_dict().items())
+
+    # the bf16 network at bench width learns a synthetic task
+    net = init_params(ConformerEncoderNet(2000, 45, **CONFORMER, compute_dtype="bfloat16",
+                                          device=dev), 1)
+    trainer = SequenceTrainer(net, 2000, TrainConfig(optimizer="adam"))
+    y = rng.integers(0, 2000, size=(16, 400))
+    means = rng.normal(size=(2000, 45)).astype(np.float32)
+    x = means[y] + 0.3 * rng.normal(size=(16, 400, 45)).astype(np.float32)
+    task = [torch.from_numpy(a).to(dev) for a in (x, y.astype(np.int32),
+                                                  np.ones((16, 400), np.float32))]
+    losses = [float(trainer._update(*task)[0]) for _ in range(BF16_STEPS)]
+    if not (np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(losses[:3]) - BF16_FALL):
+        raise AssertionError(f"train-ce: the bf16 loss did not fall: {losses}")
+    del net, trainer, task
+
+    # a run resumed mid-epoch from a checkpoint ends bit-equal
+    feats = rng.normal(size=(8192, 45)).astype(np.float32)
+    ds = FrameDataset(feats, rng.integers(0, 2000, size=8192).astype(np.int32))
+    ffnn = FeedForwardNet(2000, 45, hidden=(512, 512), device=dev)
+    cfg = TrainConfig(batch_size=256, epochs=2, learning_rate=0.05)
+    straight, _ = NnTrainer(ffnn, 2000, cfg).train(ds)
+    with tempfile.TemporaryDirectory() as ckdir:
+        ck = CheckpointManager(ckdir, max_to_keep=100)
+        NnTrainer(ffnn, 2000, cfg).train(ds, ckpt=ck, ckpt_every=10)
+        for step in ck.all_steps():  # the job died after step 45, in epoch 1
+            if step > 45:
+                for suffix in (".pt", ".json"):
+                    os.remove(os.path.join(ckdir, f"ckpt_{step:08d}{suffix}"))
+        cut = ck.latest_step()
+        resumed, _ = NnTrainer(ffnn, 2000, cfg).train(ds, ckpt=ck, resume=True)
+    if cut != 40 or not all(torch.equal(straight[k], resumed[k]) for k in straight):
+        raise AssertionError("train-ce: the resumed run is not bit-equal to the straight one")
+    say(f"train-ce checks: float32 conformer step card vs cpu max abs err {step_err:.2e} "
+        f"(tolerance {TRAIN_F32_ATOL} + {TRAIN_F32_RTOL} x value); bf16 loss at bench width over "
+        f"{BF16_STEPS} Adam steps {losses[0]:.3f} -> {losses[-1]:.3f}; FFNN resumed at step 40 of "
+        f"64 (epoch 1, minibatch 8) bit-equal to the straight run")
+    return record, counts
+
+
+def train_lfmmi_phase(s, dev, rng, say, reset_counts, counted):
+    """LF-MMI and sMBR steps of bench.py's conformer at B=16 x 400 over a
+    phone-bigram denominator of the main path's 40 phones (3 states each,
+    the main path's classes without contexts; numerator graphs of 3-6
+    words without optional silence); the loss and emission gradient of
+    B=2 on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.align.aligner import linear_segmentation
+    from rasr_tpu_torch.align.graph import build_linear_graph
+    from rasr_tpu_torch.models.allophone import Allophone, AllophoneState
+    from rasr_tpu_torch.models.hmm import HmmTopology
+    from rasr_tpu_torch.models.nn import ConformerEncoderNet, init_params
+    from rasr_tpu_torch.synthetic import CONFORMER
+    from rasr_tpu_torch.train import lfmmi
+    from rasr_tpu_torch.train.nn_trainer import LfMmiSequenceTrainer, TrainConfig
+
+    B, T, C = 16, 400, s.scorer.num_classes
+
+    class ContextFree:
+        """The main path's tying without contexts: the classes of the
+        denominator's phone states, so every numerator path is one of the
+        denominator's."""
+
+        num_classes = C
+
+        def classify(self, state):
+            return s.tying.classify(AllophoneState(Allophone(state.allophone.center),
+                                                   state.state))
+
+    tying = ContextFree()
+    phones = [p for p in s.lexicon.phonemes if not p.context_independent]
+    den = lfmmi.build_phone_bigram_den(
+        len(phones), 3,
+        lambda p, q: tying.classify(AllophoneState(Allophone(phones[p].id), q)),
+        np.full((len(phones),) * 2, np.log(len(phones)), np.float32), device=dev)
+    words = [lemma.primary_orth for lemma in s.lexicon.lemmata if not lemma.special]
+    topo = HmmTopology(states_per_phone=3, silence_states=1)
+    graphs = [build_linear_graph(" ".join(rng.choice(words, size=int(rng.integers(3, 7)))),
+                                 s.lexicon, tying, topo, optional_silence=False)
+              for _ in range(B)]
+    n = np.full(B, T)
+    labels = linear_segmentation(graphs, n)
+    x = rng.normal(size=(B, T, 45)).astype(np.float32)
+    net = init_params(ConformerEncoderNet(C, 45, **CONFORMER, compute_dtype="bfloat16",
+                                          device=dev), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    rows = {}
+    for crit in ("mmi", "smbr"):
+        tr = LfMmiSequenceTrainer(net, C, den, TrainConfig(), criterion=crit, ce_weight=0.1)
+        batch = (*(torch.from_numpy(a).to(dev) for a in (x, labels, n)),
+                 *tr.padded_graphs(graphs, B))
+        loss = tr._mmi_update(*batch)[0]  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LFMMI_STEPS):
+            loss, obj = tr._mmi_update(*batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / LFMMI_STEPS
+        if not (np.isfinite(float(loss)) and np.isfinite(float(obj))):
+            raise AssertionError(f"train-lfmmi {crit}: non-finite loss {float(loss)}")
+        prof = profile_loop(lambda: tr._mmi_update(*batch), T)
+        rows[crit] = step_ms
+        say(f"train-lfmmi {crit} B={B} x {T} (d{CONFORMER['d_model']} x "
+            f"{CONFORMER['num_blocks']} bf16, den {den.num_states} states, ce anchor 0.1): "
+            f"{step_ms:.1f} ms per step over {LFMMI_STEPS} steps, {B * T / step_ms * 1e3:.0f} "
+            f"frames/s, loss {float(loss):.4f}, {crit}/frame {float(obj):.4f}; one step "
+            f"profiled: {describe(prof)}")
+    counts = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        emis = -torch.log_softmax(net(torch.from_numpy(x[:2]).to(dev),
+                                      lengths=torch.from_numpy(n[:2]).to(dev)), dim=-1)
+    den_prof = profile_loop(lambda: lfmmi.dense_forward(emis, den, torch.from_numpy(n[:2]).to(dev)),
+                            T)
+    g2 = [a[:2] for a in tr.padded_graphs(graphs, B)]
+    out = {}
+    for d in (dev, "cpu"):
+        e = emis.to(d)
+        nd = torch.from_numpy(n[:2]).to(d)
+        fsa = den.to(d)
+        loss, grad = lfmmi.lfmmi_grad_emissions(e, fsa, nd, *(a.to(d) for a in g2[1:]), g2[0].to(d))
+        et = e.clone().requires_grad_(True)
+        acc = lfmmi.expected_accuracy(et, fsa, nd, torch.from_numpy(labels[:2]).to(d))
+        acc.sum().backward()
+        out[str(d)] = [t.detach().cpu() for t in (loss, grad, acc, et.grad)]
+    errs = [check_close(f"train-lfmmi B=2 {name} card vs cpu", a, b, LFMMI_RTOL,
+                        LFMMI_RTOL * float(b.abs().max()))
+            for name, a, b in zip(("mmi loss", "mmi emission gradient", "smbr objective",
+                                   "smbr emission gradient"), out[str(dev)], out["cpu"])]
+    say(f"train-lfmmi card == cpu on B=2 x {T}: mmi loss, emission gradient, sMBR objective "
+        f"and its gradient within {LFMMI_RTOL} relative (max abs errs "
+        f"{', '.join(f'{e:.2e}' for e in errs)}); denominator forward alone (B=2): "
+        f"{describe(den_prof)}; launches {counts}; peak device memory {peak / 2**30:.2f} GiB")
+    return rows, counts
+
+
+def fmllr_phase(s, dev, corpus, batch, feats, n_frames, base, say, reset_counts, read_counts):
+    """Per-speaker fMLLR from a Viterbi alignment of the recognizer corpus,
+    then the recognizer with those transforms, and with identity
+    transforms (the words of the plain run)."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.align.aligner import BatchAligner
+    from rasr_tpu_torch.align.graph import build_linear_graph
+    from rasr_tpu_torch.models.hmm import HmmTopology
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+    from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
+    from rasr_tpu_torch.train.fmllr import (
+        FmllrModelTensors, estimate_fmllr, fmllr_auxiliary, fmllr_stats,
+    )
+
+    topo = HmmTopology(states_per_phone=3, silence_states=1)
+    st = Stages()
+    graphs = st("graphs (host)", lambda: [build_linear_graph(seg.orth, s.lexicon, s.tying, topo)
+                                          for seg in batch.segments])
+    als = st("Viterbi align", lambda: BatchAligner(s.scorer).align(feats, graphs, n_frames))
+    mt = FmllrModelTensors.from_mixture_set(s.mixtures, device=dev)
+    speakers = sorted({seg.speaker for seg in batch.segments})[:FMLLR_SPEAKERS]
+    D = feats.shape[-1]
+    ident = np.hstack([np.eye(D), np.zeros((D, 1))])
+    table, frames = {}, 0
+    for spk in speakers:
+        rows = [i for i, seg in enumerate(batch.segments) if seg.speaker == spk]
+        x = torch.cat([feats[i, : als[i].num_frames] for i in rows])
+        mix = np.concatenate([als[i].emission_ids for i in rows])
+        G, k, beta = st(f"stats {spk}", lambda: fmllr_stats(x, mix, mt))
+        W = st(f"estimate {spk} (host)", lambda: estimate_fmllr(G, k, beta))
+        if not (np.isfinite(W).all() and fmllr_auxiliary(G, k, beta, W)
+                >= fmllr_auxiliary(G, k, beta, ident) - 1e-6 * abs(fmllr_auxiliary(G, k, beta,
+                                                                                   ident))):
+            raise AssertionError(f"fmllr: the transform of {spk} lowers the auxiliary")
+        table[spk] = W
+        frames += x.shape[0]
+    # the statistics of the last speaker on the CPU
+    Gc, kc, bc = fmllr_stats(x.cpu(), mix, s.mixtures, device="cpu")
+    stat_err = max(check_stats("fmllr G card vs cpu", G, Gc, EM_RTOL),
+                   check_stats("fmllr k card vs cpu", k, kc, EM_RTOL))
+    say(f"fmllr {len(speakers)} speakers, {frames} frames: {st}; statistics card vs cpu within "
+        f"{stat_err:.2e} of their largest entry")
+    runs = {}
+    for label, tab in (("fMLLR", table), ("identity", {spk: ident for spk in speakers})):
+        rec = OfflineRecognizer(s.frontend, s.scorer, s.decoder, feature_transforms=tab)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        runs[label] = {r.segment_name: r for r in rec.run(CorpusVisitor(corpus,
+                                                                       batch_size=len(base)))}
+        wall = time.time() - t0
+        counts = read_counts(f"fmllr recognizer path ({label})", gmm_scores, mfcc_frames)
+        say(f"fmllr recognizer ({label} transforms on {len(speakers)} speakers): "
+            f"{float(batch.lengths.sum()) / 16000 / wall:.1f} audio-s/s; launches {counts}")
+    if [r.words for r in runs["identity"].values()] != [base[k].words for k in runs["identity"]]:
+        raise AssertionError("fmllr: identity transforms decode other words than no transforms")
+    adapted = {seg.full_name for seg in batch.segments if seg.speaker in table}
+    changed = sum(runs["fMLLR"][k].words != base[k].words for k in adapted)
+    say(f"fmllr: identity transforms == no transforms on {len(base)} segments; the fMLLR "
+        f"transforms changed the words of {changed} of the {len(adapted)} adapted segments")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -156,7 +641,9 @@ def main() -> int:
     from rasr_tpu_torch.lattice.lattice import Lattice, decoder_lattice
     from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
     from rasr_tpu_torch.models.lm.ngram import compile_ngram
-    from rasr_tpu_torch.models.nn import ConformerEncoderNet, NnHybridScorer, StatePriors
+    from rasr_tpu_torch.models.nn import (
+        ConformerEncoderNet, NnHybridScorer, StatePriors, conformer_flop,
+    )
     from rasr_tpu_torch.ops.frontend import (
         FrontendConfig, frame_signal, make_params, num_frames, preemphasize,
     )
@@ -531,7 +1018,8 @@ def main() -> int:
         write_wav(wav, (rng.normal(size=int(dur * 16000)) * 0.1).astype(np.float32))
         audio_total += int(dur * 16000) / 16000
         orth = " ".join(rng.choice(words, size=int(rng.integers(2, 13))))
-        xml.append(f'<recording name="r{i}" audio="{wav}"><segment name="s"><orth>{orth}</orth>'
+        xml.append(f'<recording name="r{i}" audio="{wav}"><segment name="s">'
+                   f'<speaker name="spk{i % RECOGNIZER_SPEAKERS}"/><orth>{orth}</orth>'
                    f"</segment></recording>")
     corpus_path = os.path.join(corpus_dir.name, "smoke.corpus")
     with open(corpus_path, "w") as fh:
@@ -607,15 +1095,20 @@ def main() -> int:
         f"({pulled_mb:.1f} MB), host lattice build {build_ms:.1f} ms per batch of "
         f"{len(direct)} (arcs per lattice median {int(np.median(arcs))}, max {max(arcs)}); "
         f"oracle WER 0 on {checked} lattices ({oracle_s:.1f} s); archive round trip equal")
+    del handle, host, lattices
+
+    # ----------- fMLLR: speaker transforms estimated and fed to the recognizer
+    fmllr_launches = fmllr_phase(s, dev, corpus, batch, fb, nb, rec_runs["best-only"], say,
+                                 reset_counts, read_counts)
     corpus_dir.cleanup()
-    del fb, handle, host, lattices
+    del fb
 
     # --------------------------------- the bench path: python -m rasr_tpu_torch.bench
     reset_counts()
     out = io.StringIO()
     t_a = time.time()
     with contextlib.redirect_stderr(io.StringIO()) as err:
-        record_b = bench.run(dev, out=out)
+        record_b = bench.run(dev, out=out, windows=BENCH_WINDOWS, iters=BENCH_ITERS)
     bench_launches = read_counts("bench path", gmm_scores, mfcc_frames)
     for line in err.getvalue().splitlines():
         say(line)
@@ -623,6 +1116,14 @@ def main() -> int:
         f"{out.getvalue().strip()}")
     if record_b["metric"] != "torch_decode_throughput" or not record_b["value"] > 0:
         raise AssertionError(f"bench entry: {record_b}")
+
+    # ----------------------- the training side: alignment, EM, LDA, NN training
+    align_launches = align_em_phase(s, dev, samples, lengths, rng, say, reset_counts,
+                                    read_counts)
+    _, ce_launches = train_ce_phase(dev, rng, say, reset_counts, counted)
+    _, lfmmi_launches = train_lfmmi_phase(s, dev, rng, say, reset_counts, counted)
+    say(f"launches on the training-side paths: align-em {align_launches}, fmllr recognizer "
+        f"{fmllr_launches}, train-ce {ce_launches}, train-lfmmi {lfmmi_launches}")
 
     # --------------------- CUDA decode == CPU decode, every beam and path
     small = int(3.0 * 16000)

@@ -18,7 +18,13 @@ back on the device), ``search.streaming`` (block-feed online decoding),
 ``lattice`` (word lattices from a decode's records, WER and the lattice
 oracle), ``pipeline`` (corpus visitor, feature caches and the offline
 recognizer) and ``bench`` (``python -m rasr_tpu_torch.bench``, the
-counterpart of ``bench.py``).
+counterpart of ``bench.py``, with its ``BENCH_TRAIN=1`` training step).
+
+The training side: ``ops.viterbi`` (banded Viterbi and forward-backward),
+``align`` (alignment graphs, batched forced alignment),
+``lattice.rescore`` (acoustic lattice rescoring) and ``train`` (GMM EM,
+LDA, fMLLR and MLLR, training checkpoints, frame and sequence CE
+training, LF-MMI and sMBR).
 """
 
 __version__ = "0.1.0"

@@ -18,9 +18,8 @@ the LM-ranked word ends): the same words, scores within 1e-2 relative.
 Each timed batch is dispatched before the last batch's results are read
 (a depth-2 pipeline); the result is the median of ``BENCH_WINDOWS``
 windows of ``BENCH_ITERS`` batches each. The knobs are bench.py's
-``BENCH_*`` environment variables (:data:`KNOBS`). ``BENCH_TRAIN=1`` (the
-training step) waits for the port of the trainers, and ``BENCH_UNROLL``
-(a TPU scan setting) has no counterpart: both raise.
+``BENCH_*`` environment variables (:data:`KNOBS`); ``BENCH_UNROLL`` (a
+TPU scan setting) has no counterpart and raises.
 
 Prints ONE JSON line, ``{"metric": "torch_decode_throughput", "value",
 "unit": "audio_seconds/s/chip", ...}``, with the per-window rates, the
@@ -28,6 +27,19 @@ device and the card's name and power limit. The metric is the port's
 own: its numbers are not comparable to the TPU history of bench.py's
 ``decode_throughput``, and it carries no ``vs_baseline``. Without a card
 it raises; :func:`run` takes ``device="cpu"`` for tests.
+
+``BENCH_TRAIN=1`` times a training step instead (bench.py's
+``train_bench``): ``ConformerEncoderNet`` at ``BENCH_TRAIN_DMODEL`` x
+``BENCH_TRAIN_BLOCKS`` (512 x 12, 8 heads, ``BENCH_CLASSES`` outputs,
+``BENCH_NN_DTYPE`` products) trained by ``SequenceTrainer(TrainConfig())``
+on ``BENCH_TRAIN_BATCH`` x ``BENCH_TRAIN_FRAMES`` (16 x 400) frames of 45
+dims. It prints one ``torch_train_mfu`` line: the median step time of 3
+windows of ``BENCH_TRAIN_STEPS`` steps on a batch resident on the device,
+each window ending in ``torch.cuda.synchronize()``; the same with the
+batch uploaded from the host every step; frames/s; the FLOP per step
+counted from the shapes (:func:`train_step_flop`) over the step time, and
+that as a share of ``BENCH_TRAIN_PEAK_TFLOPS`` (989, the H100 SXM's dense
+bf16 rate at 700 W).
 """
 
 from __future__ import annotations
@@ -48,11 +60,13 @@ from .models.allophone import Allophone, AllophoneState
 from .models.hmm import HmmTopology, TransitionModel
 from .models.lm.arpa import NgramLm
 from .models.lm.ngram import compile_ngram
+from .models.nn import ConformerEncoderNet, conformer_flop
 from .models.tying import MonophoneStateTying
 from .search.decoder import BeamConfig, TreeDecoder
 from .search.lookahead import build_bigram_lookahead
 from .search.tree import build_prefix_tree
-from .synthetic import PRODUCTION_BEAM, build_setup
+from .synthetic import CONFORMER, PRODUCTION_BEAM, build_setup
+from .train.nn_trainer import SequenceTrainer, TrainConfig
 
 
 def _flag(v: str) -> bool:
@@ -68,6 +82,13 @@ KNOBS = {
     "iters": ("BENCH_ITERS", int, 3),
     "windows": ("BENCH_WINDOWS", int, 3),
     "train": ("BENCH_TRAIN", _flag, False),
+    # the training step (bench.py:476-586)
+    "train_dmodel": ("BENCH_TRAIN_DMODEL", int, 512),
+    "train_blocks": ("BENCH_TRAIN_BLOCKS", int, 12),
+    "train_batch": ("BENCH_TRAIN_BATCH", int, 16),
+    "train_frames": ("BENCH_TRAIN_FRAMES", int, 400),
+    "train_steps": ("BENCH_TRAIN_STEPS", int, 20),
+    "train_peak_tflops": ("BENCH_TRAIN_PEAK_TFLOPS", float, 989.0),
     "unroll": ("BENCH_UNROLL", int, 1),
     # build_setup's network, LM, lookahead and scorer
     "net_cache": ("BENCH_NET_CACHE", str, ""),
@@ -98,6 +119,8 @@ _BEAM = ("max_hyps", "branch_hyps", "word_end_limit", "root_hyps", "root_arc_lim
          "expansion_limit", "root_select", "deferred_emission")
 
 METRIC = "torch_decode_throughput"
+TRAIN_METRIC = "torch_train_mfu"
+TRAIN_FEAT_DIM = 45
 #: bench.py's cross-backend tolerance on the scores of the same decode
 CANARY_RTOL = 1e-2
 
@@ -195,18 +218,93 @@ def cross_device_canary(device) -> list:
     return list(cases)
 
 
+def _device_record(device) -> dict:
+    cuda = device.type == "cuda"
+    return {"platform": "gpu" if cuda else device.type,
+            "kind": torch.cuda.get_device_name(device) if cuda else device.type,
+            "count": torch.cuda.device_count() if cuda else 1}
+
+
+def train_step_flop(cfg: dict, classes: int, batch: int, frames: int,
+                    in_dim: int = TRAIN_FEAT_DIM) -> float:
+    """FLOP of one training step of ``ConformerEncoderNet(**cfg)`` on
+    ``batch`` x ``frames``: a forward pass (``models.nn.conformer_flop``,
+    both dtypes) and a backward of twice it."""
+    return 3.0 * batch * frames * sum(conformer_flop(cfg, in_dim, classes, frames))
+
+
+def train_bench(device, k: dict, log) -> dict:
+    """The ``BENCH_TRAIN=1`` step on ``device`` at the knobs ``k``; returns
+    the result record."""
+    cuda = device.type == "cuda"
+    cfg = dict(CONFORMER, d_model=k["train_dmodel"], num_blocks=k["train_blocks"])
+    classes, B, T = k["classes"], k["train_batch"], k["train_frames"]
+    net = ConformerEncoderNet(classes, TRAIN_FEAT_DIM, **cfg, compute_dtype=k["nn_dtype"],
+                              device=device)
+    trainer = SequenceTrainer(net, classes, TrainConfig())
+    trainer.init_params()
+    rng = np.random.default_rng(0)
+    host = (rng.normal(size=(B, T, TRAIN_FEAT_DIM)).astype(np.float32),
+            rng.integers(0, classes, size=(B, T)).astype(np.int32),
+            np.ones((B, T), np.float32))
+    resident = tuple(torch.from_numpy(a).to(device) for a in host)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def window(n, upload=False) -> float:
+        """Seconds per step over ``n`` steps, ending in a synchronize."""
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            batch = tuple(torch.from_numpy(a).to(device) for a in host) if upload else resident
+            trainer._update(*batch)
+        sync()
+        return (time.perf_counter() - t0) / n
+
+    t0 = time.perf_counter()
+    window(1)
+    log(f"train warm-up {time.perf_counter() - t0:.1f} s")
+    window(2)  # settle the allocator and the dispatch path
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    steps = k["train_steps"]
+    step_s = statistics.median(window(steps) for _ in range(3))
+    upload_s = statistics.median(window(steps, upload=True) for _ in range(3))
+    flop = train_step_flop(cfg, classes, B, T)
+    tflops = flop / step_s / 1e12
+    mfu = tflops / k["train_peak_tflops"]
+    log(f"train step {step_s * 1e3:.2f} ms ({B}x{T} frames, d{cfg['d_model']}x"
+        f"{cfg['num_blocks']}, {k['nn_dtype']}) | {B * T / step_s:.0f} frames/s | "
+        f"{tflops:.2f} TFLOP/s ({flop:.4e} FLOP per step) | MFU {mfu:.2%} of "
+        f"{k['train_peak_tflops']:g} | with per-step upload {upload_s * 1e3:.2f} ms")
+    return {
+        "metric": TRAIN_METRIC,
+        "value": 100.0 * mfu,
+        "unit": "percent_of_peak",
+        "step_ms": step_s * 1e3,
+        "frames_per_s": B * T / step_s,
+        "achieved_tflops": tflops,
+        "step_ms_with_upload": upload_s * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
+        "flop_per_step": flop,
+        "knobs": {k_: k[k_] for k_ in KNOBS if k[k_] != KNOBS[k_][2]},
+        "device": _device_record(device),
+        "card": card_tag() if cuda else None,
+    }
+
+
 def run(device=None, out=None, **knobs) -> dict:
-    """Canaries, then the timed decode on ``device`` (the card when None);
-    ``knobs`` are :data:`KNOBS` keywords over their defaults. Prints the
-    result line to ``out`` (stdout) and returns it."""
+    """Canaries, then the timed decode on ``device`` (the card when None),
+    or with ``train=True`` the timed training step; ``knobs`` are
+    :data:`KNOBS` keywords over their defaults. Prints the result line to
+    ``out`` (stdout) and returns it."""
     unknown = set(knobs) - set(KNOBS)
     if unknown:
         raise TypeError(f"unknown bench knobs {sorted(unknown)}")
     k = {name: default for name, (_, _, default) in KNOBS.items()}
     k.update(knobs)
-    if k["train"]:
-        raise NotImplementedError("BENCH_TRAIN=1 (the conformer training step) waits for the "
-                                  "port of the trainers (ROADMAP Queue 1 item 5)")
     if k["unroll"] != 1:
         raise NotImplementedError("BENCH_UNROLL unrolls the TPU's frame scan; the port's frame "
                                   "loop is eager PyTorch and has no counterpart")
@@ -215,6 +313,11 @@ def run(device=None, out=None, **knobs) -> dict:
 
     def log(msg):
         sys.stderr.write(f"[bench] {msg}\n")
+
+    if k["train"]:
+        record = train_bench(device, k, log)
+        print(json.dumps(record), file=out or sys.stdout, flush=True)
+        return record
 
     planted_canary(device)
     log("canary ok: [SILENCE] AB @ [1, 5] (plain + rsel/defer; within-word + across-word)")
@@ -270,9 +373,7 @@ def run(device=None, out=None, **knobs) -> dict:
         "warmup_s": warmup_s,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
         "canaries": ["planted"] + crossed,
-        "device": {"platform": "gpu" if cuda else device.type,
-                   "kind": torch.cuda.get_device_name(device) if cuda else device.type,
-                   "count": torch.cuda.device_count() if cuda else 1},
+        "device": _device_record(device),
         "card": card_tag() if cuda else None,
     }
     print(json.dumps(record), file=out or sys.stdout, flush=True)

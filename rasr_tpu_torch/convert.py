@@ -1,12 +1,13 @@
 """Carry the JAX package's compiled state across to the port.
 
 Each function takes a ``rasr_tpu`` object, reads its arrays as numpy
-(``np.asarray(field)``) and builds the port's counterpart on ``device`` (the card when it is None).
-Nothing here imports jax: the functions only read attributes, so they
-accept the JAX objects directly. (The LDA matrix needs no converter:
-``FeatureFrontend`` takes it as a numpy array.) ``nn_params_from_flax``
-turns a flax parameter tree into a ``state_dict`` for one of the port's
-networks.
+(``np.asarray(field)``) and builds the port's counterpart on ``device``
+(the card when it is None); the host-side ones (``MixtureSet``,
+``LinearGraph``) stay numpy. Nothing here imports jax: the functions
+only read attributes, so they accept the JAX objects directly. (The LDA
+matrix needs no converter: ``FeatureFrontend`` takes it as a numpy
+array.) ``nn_params_from_flax`` turns a flax parameter tree into a
+``state_dict`` for one of the port's networks.
 """
 
 from __future__ import annotations
@@ -18,11 +19,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from .align.graph import LinearGraph
+from .corpus.lexicon import Lemma, Pronunciation
 from .device import resolve
-from .models.gmm import ScoringTensors
+from .models.allophone import Allophone, AllophoneState
+from .models.gmm import MixtureSet, ScoringTensors
 from .models.lm.ngram import NgramTables
 from .ops.frontend import FrontendParams
 from .search.decoder import BigramTables, TreeTables
+from .train.lfmmi import DenseFsa
 
 
 def _tensor(x, device, index: bool = False) -> torch.Tensor:
@@ -46,6 +51,33 @@ def scoring_tensors_from_jax(st, device=None) -> ScoringTensors:
         a=_tensor(st.a, device), b=_tensor(st.b, device), c=_tensor(st.c, device),
         num_mixtures=int(st.num_mixtures), max_densities=int(st.max_densities),
     )
+
+
+def mixture_set_from_jax(ms) -> MixtureSet:
+    """``rasr_tpu.models.gmm.MixtureSet`` -> the port's (numpy fields)."""
+    return MixtureSet(*(np.array(getattr(ms, f.name))
+                        for f in dataclasses.fields(MixtureSet)))
+
+
+def dense_fsa_from_jax(fsa, device=None) -> DenseFsa:
+    """``rasr_tpu.train.lfmmi.DenseFsa`` -> the port's (emission classes
+    as int64)."""
+    return DenseFsa(_tensor(fsa.trans, device), _tensor(fsa.emis_class, device, index=True),
+                    _tensor(fsa.init, device), _tensor(fsa.final, device))
+
+
+def linear_graph_from_jax(g) -> LinearGraph:
+    """``rasr_tpu.align.graph.LinearGraph`` -> the port's (its allophone
+    states and lemmata rebuilt field by field)."""
+    states = [AllophoneState(Allophone(s.allophone.center, s.allophone.left,
+                                       s.allophone.right, s.allophone.boundary), s.state)
+              for s in g.states]
+    lemmas = [Lemma(l.id, list(l.orth), [Pronunciation(tuple(p.phonemes), p.score)
+                                         for p in l.pronunciations],
+                    l.special, l.synt, l.evals) for l in g.lemmas]
+    arrays = {f: np.array(getattr(g, f)) for f in
+              ("emission_ids", "loop", "fwd", "skip", "init", "final", "lemma_of_state")}
+    return LinearGraph(states=states, lemmas=lemmas, **arrays)
 
 
 def ngram_tables_from_jax(tables, device=None) -> NgramTables:

@@ -26,6 +26,14 @@ def resolve(device=None) -> torch.device:
     return cuda_device() if device is None else torch.device(device)
 
 
+def resolve_for(x, device=None) -> torch.device:
+    """The device to compute on for input ``x``: ``device`` when given,
+    else ``x``'s own when it is a tensor, else the card (:func:`resolve`)."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve(device)
+
+
 def card_tag() -> str:
     """The card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them (a

@@ -40,7 +40,7 @@ BATCH, FRAMES, PROFILE_FRAMES, TOP = 64, 998, 50, 12
 BATCH_OF_PATH = {"4-gram": 16}
 
 
-def _busy_us(intervals) -> float:
+def busy_us(intervals) -> float:
     """Length of the union of ``(start, end)`` intervals."""
     busy, end = 0.0, -float("inf")
     for a, b in sorted(intervals):
@@ -102,7 +102,7 @@ def profile(device, beam: str, path: str = "production") -> dict:
         "launches_per_frame": len(kernels) / PROFILE_FRAMES,
         "device_ops_per_frame": len(on_device) / PROFILE_FRAMES,
         "device_ms_per_frame": device_us / 1e3 / PROFILE_FRAMES,
-        "busy_share": _busy_us(spans) / window_us if spans else 0.0,
+        "busy_share": busy_us(spans) / window_us if spans else 0.0,
         "top": [{"name": k[:80], "ms_per_frame": v / 1e3 / PROFILE_FRAMES,
                  "share": v / device_us}
                 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],

@@ -221,3 +221,13 @@ def mixture_scores(
     if max_approx:
         return d.min(dim=-1).values
     return -torch.logsumexp(-d, dim=-1)
+
+
+def mixture_posteriors(feats: torch.Tensor, st: ScoringTensors):
+    """Per-density posteriors within each mixture (for EM): (gamma
+    ``[..., M, K]``, exact mixture scores ``[..., M]``)."""
+    d = density_scores(feats, st)
+    d = d.reshape(*d.shape[:-1], st.num_mixtures, st.max_densities)
+    total = -torch.logsumexp(-d, dim=-1, keepdim=True)
+    gamma = torch.exp(total - d)  # exp(-(d - total))
+    return gamma, total[..., 0]

@@ -380,6 +380,18 @@ class ConformerEncoderNet(nn.Module):
         return _dense(self.output, h, self.cdt).float()
 
 
+def conformer_flop(cfg: dict, in_dim: int, classes: int, T: int):
+    """(compute-dtype, float32) FLOP per frame of a forward pass of
+    ``ConformerEncoderNet(**cfg)`` over utterances of T frames: the
+    projections, feed-forwards, pointwise and depthwise convs and ``Q K^T``
+    in the compute dtype, the attention weights times the values in
+    float32 (flax's ``force_fp32_for_softmax``). A training step
+    (forward, then a backward of twice the forward) is 3x this."""
+    d, L, ff, k = cfg["d_model"], cfg["num_blocks"], cfg["ff_mult"], cfg["conv_kernel"]
+    block = 2 * 2 * d * ff * d + 4 * d * d + d * 2 * d + d * d + d * k + T * d  # MACs
+    return 2.0 * (in_dim * d + L * block + d * classes), 2.0 * L * T * d
+
+
 def _truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
     """Normal draws truncated to [-2, 2] standard deviations (inverse CDF)."""
     lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))

@@ -8,9 +8,9 @@ matrices into a cache archive keyed by segment full name — idempotent
 reference's cache semantics.
 
 The port's copy of ``rasr_tpu/pipeline/feature_extractor.py``: the
-frontend runs on its own device and each batch's features come to the
-host once. Speaker transforms (fMLLR) come with the port of
-``train/fmllr.py`` and raise until then.
+frontend runs on its own device, per-speaker feature transforms (fMLLR,
+``train/fmllr.py``) apply there as one batched ``[B, D, D]`` product,
+and each batch's features come to the host once.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.frontend import FeatureFrontend
+from ..train.fmllr import transform_batch
 from ..utils.archive import FileArchive, pack_ndarray, unpack_ndarray
 from ..utils.logging import LogManager
 from .visitor import CorpusVisitor
@@ -26,12 +27,10 @@ from .visitor import CorpusVisitor
 class FeatureExtractor:
     def __init__(self, frontend: FeatureFrontend, cache_path: str,
                  feature_transforms=None):
-        if feature_transforms:
-            raise NotImplementedError(
-                "speaker transforms (fMLLR, train/fmllr.py) are not ported yet "
-                "(ROADMAP Queue 1 item 5)")
         self.frontend = frontend
         self.cache_path = cache_path
+        #: optional per-speaker fMLLR transforms applied before caching
+        self.feature_transforms = feature_transforms
         self.log = LogManager.get().channel("feature-extraction", "log")
 
     def run(self, visitor: CorpusVisitor, overwrite: bool = False) -> int:
@@ -45,6 +44,8 @@ class FeatureExtractor:
                 if not todo:
                     continue
                 feats, n_frames = self.frontend(batch.samples, batch.lengths)
+                if self.feature_transforms:
+                    feats = transform_batch(feats, batch.segments, self.feature_transforms)
                 feats = feats.cpu().numpy()
                 n_frames = n_frames.cpu().numpy()
                 for i in todo:

@@ -11,9 +11,10 @@ The port's copy of ``rasr_tpu/pipeline/recognizer.py``: each batch runs
 frontend -> scorer -> ``decode_scores_device`` on the decoder's device,
 and the best paths and the lattices come from that one decode's handle
 (its records reach the host once per batch, and only when lattices are
-written). Three branches of the reference are not ported and raise:
-speaker transforms (``train/fmllr.py``), n-best lists (``lattice/flf.py``)
-and the sharded decode (``mesh``).
+written). Per-speaker feature transforms (fMLLR, ``train/fmllr.py``)
+apply on the device as one batched ``[B, D, D]`` product before the
+scorer. Two branches of the reference are not ported and raise: n-best
+lists (``lattice/flf.py``) and the sharded decode (``mesh``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..lattice.lattice import decoder_lattice
 from ..models.scorer import FeatureScorer
 from ..ops.frontend import FeatureFrontend
 from ..search.decoder import DecodeResult, TreeDecoder
+from ..train.fmllr import transform_batch
 from ..utils.archive import FileArchive
 from ..utils.logging import LogManager
 from ..utils.statistics import Accumulator
@@ -54,10 +56,6 @@ class OfflineRecognizer:
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded decode (parallel/) is not ported yet (ROADMAP Queue 1 item 11)")
-        if feature_transforms:
-            raise NotImplementedError(
-                "speaker transforms (fMLLR, train/fmllr.py) are not ported yet "
-                "(ROADMAP Queue 1 item 5)")
         if nbest_file:
             raise NotImplementedError(
                 "n-best lists (lattice/flf.py) are not ported yet (ROADMAP Queue 1 item 9)")
@@ -81,6 +79,9 @@ class OfflineRecognizer:
         #: recognized word, absolute times (segment start + frame
         #: boundaries from the decoder's word ends)
         self.ctm_file = ctm_file
+        #: optional per-speaker fMLLR transforms {speaker: W [D, D+1]}
+        #: ("*" = default; see train/fmllr.py)
+        self.feature_transforms = feature_transforms
 
     def _cached_features(self, batch):
         from .feature_extractor import load_features
@@ -129,6 +130,9 @@ class OfflineRecognizer:
                     feats, n_frames = self._cached_features(batch)
                 else:
                     feats, n_frames = self.frontend(batch.samples, batch.lengths)
+                if self.feature_transforms:
+                    feats = transform_batch(torch.as_tensor(feats), batch.segments,
+                                            self.feature_transforms)
                 emis = self.scorer(feats)  # stays on the device into the decode
                 handle = self.decoder.decode_scores_device(emis, n_frames)
                 batch_results = self.decoder.results_from_device(handle, batch.names)

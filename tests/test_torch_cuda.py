@@ -46,6 +46,12 @@ from rasr_tpu_torch.models.nn import (  # noqa: E402
 from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder  # noqa: E402
 from rasr_tpu_torch.search.streaming import StreamingDecoder  # noqa: E402
 from rasr_tpu_torch.synthetic import PATHS, build_setup  # noqa: E402
+from rasr_tpu_torch.align.aligner import BatchAligner  # noqa: E402
+from rasr_tpu_torch.align.graph import build_linear_graph  # noqa: E402
+from rasr_tpu_torch.models.hmm import HmmTopology  # noqa: E402
+from rasr_tpu_torch.ops.viterbi import BIG  # noqa: E402
+from rasr_tpu_torch.train import lfmmi  # noqa: E402
+from rasr_tpu_torch.train.nn_trainer import SequenceTrainer, TrainConfig  # noqa: E402
 
 
 @pytest.fixture
@@ -299,6 +305,124 @@ def test_streamed_equals_offline_on_card(card):
     assert [r.words for r in got] == [r.words for r in want]
     assert [r.word_ends for r in got] == [r.word_ends for r in want]
     np.testing.assert_allclose([r.score for r in got], [r.score for r in want], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["viterbi", "baum-welch"])
+def test_aligner_on_card_equals_cpu(card, mode):
+    """Forced alignment of the same GMM scores (the fused kernel's, on the
+    card) on the card and on the CPU: the same float ops, so the same
+    state sequences; scores 1e-5 relative, posteriors 1e-5 absolute."""
+    s = build_setup(num_words=80, num_phones=12, num_classes=150, densities=4, device=card)
+    rng = np.random.default_rng(8)
+    words = [l.primary_orth for l in s.lexicon.lemmata if not l.special]
+    topo = HmmTopology(states_per_phone=3, silence_states=1)
+    graphs = [build_linear_graph(" ".join(rng.choice(words, size=int(k))), s.lexicon, s.tying,
+                                 topo) for k in (3, 5, 2, 4)]
+    x = torch.from_numpy((rng.normal(size=(4, 24000)) * 0.1).astype(np.float32)).to(card)
+    feats, n = s.frontend(x, torch.tensor([24000, 24000, 12000, 20000], device=card))
+    before = gmm_scores.launches
+    scores = s.scorer(feats)
+    assert gmm_scores.launches == before + 1
+    aligner = BatchAligner(s.scorer, mode)
+    got = aligner.align_scores(scores, graphs, n)
+    want = aligner.align_scores(scores.cpu(), graphs, n.cpu())
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.state_indices, b.state_indices)
+        np.testing.assert_allclose(a.score, b.score, rtol=1e-5)
+        np.testing.assert_allclose(a.weights, b.weights, atol=1e-5)
+    assert all(np.isfinite(a.score) and a.score < BIG / 2 for a in got)
+
+
+def _conformer_pair(card, seed=2):
+    kw = dict(d_model=64, num_blocks=2, num_heads=4, conv_kernel=15)
+    on_cpu = init_params(ConformerEncoderNet(40, 45, device="cpu", **kw), seed)
+    on_card = ConformerEncoderNet(40, 45, device=card, **kw)
+    on_card.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, 100, 45)).astype(np.float32)
+    y = rng.integers(0, 40, size=(3, 100)).astype(np.int32)
+    y[2, 60:] = -1
+    return on_cpu, on_card, (x, y, np.ones((3, 100), np.float32))
+
+
+@pytest.mark.cuda
+def test_conformer_train_step_on_card_equals_cpu(card):
+    """One float32 SequenceTrainer step (momentum) of the same conformer
+    on the card and on the CPU: parameters within 1e-4 + 1e-3 relative."""
+    on_cpu, on_card, batch = _conformer_pair(card)
+    for net, dev in ((on_cpu, "cpu"), (on_card, card)):
+        tr = SequenceTrainer(net, 40, TrainConfig(learning_rate=0.05))
+        tr._update(*(torch.from_numpy(a).to(dev) for a in batch))
+    want = on_cpu.state_dict()
+    for k, v in on_card.state_dict().items():
+        torch.testing.assert_close(v.cpu(), want[k], rtol=1e-3, atol=1e-4, msg=k)
+
+
+@pytest.mark.cuda
+def test_train_step_holds_strict_precision_on_card(card):
+    """With TF32 allowed globally (PyTorch's convolution default, and
+    matmul's when a caller turns it on), one conformer step's gradients
+    equal those of the same step with TF32 forbidden: the backward runs
+    under strict precision. The same backward taken outside strict
+    precision moves by TF32's rounding, so the check can tell."""
+    _, net, batch = _conformer_pair(card, seed=3)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    batch = [torch.from_numpy(a).to(card) for a in batch]
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32)
+
+    def grads(tf32: bool, strict: bool = True):
+        net.load_state_dict(start)
+        tr = SequenceTrainer(net, 40, TrainConfig(learning_rate=0.0))
+        mm.allow_tf32 = cudnn.allow_tf32 = tf32
+        try:
+            if strict:
+                tr._update(*batch)
+            else:  # the backward outside strict precision (only the forward inside)
+                tr.opt.zero_grad(set_to_none=True)
+                tr._loss(*batch, train=True)[0].backward()
+        finally:
+            mm.allow_tf32, cudnn.allow_tf32 = saved
+        return torch.cat([p.grad.reshape(-1) for p in net.parameters()])
+
+    strict = grads(False)
+    scale = strict.abs().max()
+    torch.testing.assert_close(grads(True), strict, rtol=1e-5, atol=1e-6 * scale)
+    loose = grads(True, strict=False)
+    assert (loose - strict).abs().max() > 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_lfmmi_gradients_on_card_equal_cpu(card):
+    """The LF-MMI loss and emission gradient and the sMBR objective and
+    its gradient on the card == on the CPU, 1e-4 relative."""
+    rng = np.random.default_rng(9)
+    P, Q, M, T = 6, 3, 20, 60
+    kw = dict(classify=lambda p, q: (5 * p + q) % M,
+              bigram_costs=rng.uniform(0.5, 2.0, size=(P, P)).astype(np.float32))
+    e = rng.uniform(0.1, 4.0, size=(3, T, M)).astype(np.float32)
+    n = np.array([60, 41, 17])
+    ref = rng.integers(-1, M, size=(3, T))
+    cls = rng.integers(0, M, size=(3, 9))
+    graph = [np.full((3, 9), v, np.float32) for v in (0.7, 0.3, BIG)]
+    graph[1][:, 0] = BIG
+    init = np.full((3, 9), BIG, np.float32)
+    init[:, 0] = 0.0
+    final = np.full((3, 9), BIG, np.float32)
+    final[:, -1] = 0.0
+    out = {}
+    for dev in ("cpu", card):
+        den = lfmmi.build_phone_bigram_den(P, Q, device=dev, **kw)
+        t = [torch.from_numpy(a).to(dev) for a in (e, n, *graph, init, final, cls, ref)]
+        loss, grad = lfmmi.lfmmi_grad_emissions(t[0], den, *t[1:8])
+        et = t[0].clone().requires_grad_(True)
+        acc = lfmmi.expected_accuracy(et, den, t[1], t[8])
+        acc.sum().backward()
+        out[str(dev)] = [x.detach().cpu() for x in (loss, grad, acc, et.grad)]
+    for got, want in zip(out[str(card)], out["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max())
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

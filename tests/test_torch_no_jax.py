@@ -7,7 +7,11 @@ context groups, bigram lookahead and compact branch slots, and behind a
 small conformer hybrid scorer; each decode is also streamed in blocks. A
 second subprocess runs the offline recognizer over a synthesized corpus
 with a lattice archive and a CTM file, and the benchmark entry point at a
-tiny size. The port carries its own copies of the host modules, so it
+tiny size. A third drives the training side: forced alignment (Viterbi
+and Baum-Welch), an EM step, LDA, fMLLR and MLLR, frame and sequence CE
+training with a checkpoint, LF-MMI and sMBR steps, lattice rescoring, the
+recognizer with speaker transforms and the ``BENCH_TRAIN=1`` entry at a
+tiny width. The port carries its own copies of the host modules, so it
 loads no module of ``rasr_tpu``.
 """
 
@@ -109,6 +113,83 @@ def test_recognizer_and_bench_run_without_jax():
     assert line.split()[1:] == [], line
 
 
+TRAIN_SCRIPT = r"""
+import io, math, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["rasr_tpu"] = None
+import numpy as np, torch
+from rasr_tpu_torch import bench
+from rasr_tpu_torch.align.aligner import BatchAligner, linear_segmentation
+from rasr_tpu_torch.align.graph import build_linear_graph
+from rasr_tpu_torch.lattice.lattice import Lattice, LatticeArc
+from rasr_tpu_torch.lattice.rescore import rescore_am
+from rasr_tpu_torch.models.hmm import HmmTopology
+from rasr_tpu_torch.models.nn import ConformerEncoderNet, FeedForwardNet
+from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+from rasr_tpu_torch.search.decoder import BeamConfig
+from rasr_tpu_torch.synthetic import build_setup
+from rasr_tpu_torch.train import em, fmllr, lda, lfmmi, mllr
+from rasr_tpu_torch.train.checkpoint import CheckpointManager
+from rasr_tpu_torch.train.nn_trainer import (
+    FrameDataset, LfMmiSequenceTrainer, NnTrainer, SequenceTrainer, TrainConfig)
+beam = BeamConfig(max_hyps=32, word_end_limit=8, root_hyps=4, branch_hyps=8, lm_scale=10.0)
+s = build_setup(num_words=30, num_phones=8, num_classes=50, densities=2, beam=beam, device="cpu")
+topo = HmmTopology(states_per_phone=3, silence_states=1)
+rng = np.random.default_rng(0)
+words = [l.primary_orth for l in s.lexicon.lemmata if not l.special]
+graphs = [build_linear_graph(" ".join(rng.choice(words, size=2)), s.lexicon, s.tying, topo)
+          for _ in range(2)]
+x = torch.from_numpy((rng.normal(size=(2, 16000)) * 0.1).astype(np.float32))
+feats, n = s.frontend(x, torch.tensor([16000, 12000]))
+labels = linear_segmentation(graphs, n.numpy())
+acc = em.accumulate(em.GmmAccumulator.zeros(*s.mixtures.means.shape), s.mixtures, feats, labels)
+model = em.estimate(acc, prev=s.mixtures)
+aligner = BatchAligner(GmmFeatureScorer(model, device="cpu"))
+als = aligner.align(feats, graphs, n)
+assert [a.num_frames for a in als] == n.tolist()
+total, gamma, ids = BatchAligner(aligner.scorer, "baum-welch").gamma(feats, graphs, n)
+sc = lda.accumulate_scatter(lda.ScatterAccumulator.zeros(50, feats.shape[-1]), feats, labels)
+proj, _ = lda.estimate_lda(sc, 10)
+flat = feats[0, : int(n[0])]
+G, k, beta = fmllr.fmllr_stats(flat, labels[0, : int(n[0])], model)
+W = fmllr.estimate_fmllr(G, k, beta, min_count=10.0)
+mllr.estimate_mllr(*mllr.mllr_stats(flat, labels[0, : int(n[0])], model), model, min_count=10.0)
+ds = FrameDataset(feats.numpy(), labels)
+ff = FeedForwardNet(50, feats.shape[-1], hidden=(16,), device="cpu")
+tmp = tempfile.mkdtemp()
+NnTrainer(ff, 50, TrainConfig(batch_size=32)).train(ds, ckpt=CheckpointManager(tmp), ckpt_every=2)
+conf = ConformerEncoderNet(50, feats.shape[-1], d_model=8, num_blocks=1, num_heads=2,
+                           ff_mult=2, conv_kernel=3, device="cpu")
+SequenceTrainer(conf, 50, TrainConfig()).train_sequences(feats.numpy(), labels, batch_size=2)
+den = lfmmi.build_phone_bigram_den(8, 3, lambda p, q: 1 + (7 * p + q) % 49,
+                                   np.full((8, 8), math.log(8), np.float32), device="cpu")
+for crit in ("mmi", "smbr"):
+    _, st = LfMmiSequenceTrainer(conf, 50, den, criterion=crit).train_lfmmi(
+        feats.numpy(), graphs, n.numpy(), labels=labels, batch_size=2)
+    assert np.isfinite(st[0]["loss"]), st
+orths = [l.primary_orth for l in s.lexicon.lemmata]
+lat = Lattice(num_nodes=2, arcs=[LatticeArc(0, 1, orths.index(words[0]), 0.0, 0.0)],
+              node_time=np.array([0, 40], np.int32), final_scores={1: 0.0}, lemma_orths=orths)
+rescore_am(lat, aligner.scorer(feats)[0], s.lexicon, s.tying, topo)
+from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+assert OfflineRecognizer(s.frontend, s.scorer, s.decoder, feature_transforms={"*": W})
+out = io.StringIO()
+bench.run(device="cpu", out=out, train=True, train_dmodel=8, train_blocks=1, train_batch=2,
+          train_frames=6, train_steps=1, classes=10)
+assert "torch_train_mfu" in out.getvalue()
+print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu."))))
+"""
+
+
+def test_training_side_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = [l for l in proc.stdout.splitlines() if l.startswith("LOADED")]
+    assert line.split()[1:] == [], line
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -123,4 +204,4 @@ def test_no_source_imports_jax():
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
-            assert name.split(".")[0] not in ("jax", "rasr_tpu"), (path, name)
+            assert name.split(".")[0] not in ("jax", "flax", "optax", "rasr_tpu"), (path, name)

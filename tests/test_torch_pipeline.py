@@ -6,7 +6,8 @@ batches and partitions and the prefetching visitor equal the reference's;
 cache archives written by one package read back in the other; and the
 port's ``OfflineRecognizer`` gives the JAX recognizer's words, scores,
 WER report, CTM lines and archived lattices, with prefetch on and off, and
-from a feature cache. The recognizer's unported branches raise.
+from a feature cache, and with per-speaker feature transforms (fMLLR). The
+recognizer's unported branches raise.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from rasr_tpu.pipeline.feature_extractor import load_features as jax_load_featur
 from rasr_tpu.pipeline.recognizer import OfflineRecognizer as JaxRecognizer
 from rasr_tpu.pipeline.visitor import CorpusVisitor as JaxVisitor
 from rasr_tpu.search import decoder as jdec
+from rasr_tpu.train.fmllr import apply_speaker_transforms as jax_apply_speaker_transforms
 from rasr_tpu.utils import archive as jax_archive
 from rasr_tpu_torch.corpus.bliss import CorpusDescription
 from rasr_tpu_torch.lattice.lattice import Lattice
@@ -265,10 +267,62 @@ def test_archives_interoperate(tmp_path, writer):
 
 
 def test_unported_recognizer_branches_raise(toy):
-    for kw in (dict(mesh=object()), dict(feature_transforms={"spk": np.eye(16, 17)}),
-               dict(nbest_file=str(toy["tmp"] / "nbest.txt"))):
+    for kw in (dict(mesh=object()), dict(nbest_file=str(toy["tmp"] / "nbest.txt"))):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             _recognizer(toy, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        FeatureExtractor(FeatureFrontend(FrontendConfig(), device="cpu"), "x",
-                         feature_transforms={"spk": np.eye(16, 17)})
+
+
+def _transforms(seed=11):
+    """A per-speaker fMLLR table: a near-identity affine W [16, 17] as the
+    default ("*"), which every toy segment (no speaker) takes."""
+    rng = np.random.default_rng(seed)
+    W = np.hstack([np.eye(NUM_FEATS) + 0.05 * rng.normal(size=(NUM_FEATS, NUM_FEATS)),
+                   0.1 * rng.normal(size=(NUM_FEATS, 1))])
+    return {"*": W}
+
+
+def test_recognizer_with_speaker_transforms_matches_jax(toy):
+    """Features through each segment's transform (the port: one batched
+    [B, D, D] product on the decoder's device) decode as the JAX
+    recognizer's do."""
+    table = _transforms()
+    want = _run(_jax_recognizer, toy, "jax-fmllr",
+                JaxVisitor(JaxCorpus.load(toy["path"]), batch_size=2), feature_transforms=table)
+    got = _run(_recognizer, toy, "port-fmllr",
+               CorpusVisitor(CorpusDescription.load(toy["path"]), batch_size=2),
+               feature_transforms=table)
+    _assert_runs_equal(got, want)
+
+
+def test_identity_transforms_equal_no_transforms(toy, jax_run):
+    eye = {"*": np.hstack([np.eye(NUM_FEATS), np.zeros((NUM_FEATS, 1))])}
+    visitor = CorpusVisitor(CorpusDescription.load(toy["path"]), batch_size=2)
+    got = _run(_recognizer, toy, "port-eye", visitor, feature_transforms=eye)
+    plain = _run(_recognizer, toy, "port-plain", visitor)
+    assert [(r.words, r.score) for r in got["results"]] == [
+        (r.words, r.score) for r in plain["results"]]
+    assert got["lattices"] == plain["lattices"] and got["ctm"] == plain["ctm"]
+    _assert_runs_equal(got, jax_run)
+
+
+def test_feature_extractor_with_speaker_transforms_matches_jax(toy):
+    """Cached features through the speaker transforms: the port's batched
+    product on the frontend's device == the reference's host (float64)
+    ``apply_speaker_transforms`` of the same frontend's features, within
+    1e-5 (float32 sums); the reference's extractor caches the same
+    segments and frames."""
+    table = _transforms(12)
+    caches = {k: str(toy["tmp"] / f"{k}-fmllr.feats") for k in ("jax", "port")}
+    JaxFeatureExtractor(JaxFrontend(JaxFrontendConfig()), caches["jax"],
+                        feature_transforms=table).run(
+        JaxVisitor(JaxCorpus.load(toy["path"]), batch_size=2))
+    fe = FeatureFrontend(FrontendConfig(), device="cpu")
+    visitor = CorpusVisitor(CorpusDescription.load(toy["path"]), batch_size=2)
+    FeatureExtractor(fe, caches["port"], feature_transforms=table).run(visitor)
+    for batch in visitor.batches():
+        feats, n = fe(batch.samples, batch.lengths)
+        want = jax_apply_speaker_transforms(feats.numpy(), batch.segments, table)
+        for i, name in enumerate(batch.names):
+            got = load_features(caches["port"], name)
+            assert got.shape == load_features(caches["jax"], name).shape
+            np.testing.assert_allclose(got, want[i, : int(n[i])], rtol=1e-5, atol=1e-5)
