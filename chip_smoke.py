@@ -44,7 +44,7 @@ counters set to 0 just before it and read just after:
   ``OfflineRecognizer(feature_transforms=...)`` with those transforms and
   with identity ones (which must give the words of the plain run);
 - the bench path: ``python -m rasr_tpu_torch.bench``'s ``run`` at its
-  defaults at reduced depth (both canaries, then 2 windows of 2 batches
+  defaults at reduced depth (both canaries, then 1 window of 2 batches
   of 64 x 10 s);
 - the align-em path: the main path's setup on 64 x 10 s with orths of
   8-20 words from its lexicon: features (MFCC kernel), flat-start labels,
@@ -58,7 +58,20 @@ counters set to 0 just before it and read just after:
   20 steps, and a mid-epoch checkpoint resume bit-equal to a straight run;
 - the train-lfmmi path: LF-MMI and sMBR steps of the same conformer at
   B=16 x 400 over a phone-bigram denominator of the main path's 40 phones;
-  the loss and emission gradients of B=2 on the card against the CPU's.
+  the loss and emission gradients of B=2 on the card against the CPU's;
+- the rnn-fusion path: an RNN LM (E=64, H=128) trained on the card for 10
+  full-batch Adam epochs on 2000 x 12 words of the main path's orths, fused
+  at weight 0.5 into the main path's decoder; a 1-s warm-up and one timed
+  batch of 64 x 10 s from audio (its rate beside the n-gram-only main
+  path's, the state pools' size, the peak memory, the frame loop's launches
+  and device time beside the n-gram decoder's, word_scores and cell_step
+  beside their bounds); the fused decode of B=4 x 3 s on the card against
+  the CPU; the batch's emissions streamed in blocks of 128 (the pool at 2K
+  + R x Tb rows after every feed, streamed == offline); the recognizer
+  corpus with lattices and 10-best lists (rank 0 == the best path); 4 of
+  its lattices rescored with the RNN LM and decoded as confusion networks;
+  one MMI EBW update of the main path's GMMs from them (the card's
+  accumulators against the CPU's).
 
 A small batch decoded on the card and on the CPU must agree on every
 path, and so must the lattices of a 4 x 3 s batch. Prints per-stage
@@ -122,9 +135,18 @@ ALIGN_WORDS = (8, 21)  # words per 10-s utterance of the align-em path
 # the default rate: 0.6 in 20 steps at d=32 on the CPU)
 BF16_STEPS, BF16_FALL, LFMMI_STEPS = 20, 0.2, 2
 # the bench entry at reduced depth (its defaults: 3 windows of 3 batches)
-BENCH_WINDOWS, BENCH_ITERS = 2, 2
+BENCH_WINDOWS, BENCH_ITERS = 1, 2
 # Baum-Welch on the CPU for the first ALIGN_CPU_BW utterances of the batch
 ALIGN_CPU_BW = 16
+# the rnn-fusion path: the RNN LM (LstmLmModule's default widths) trained
+# on RNN_SENTENCES x RNN_SENTENCE_WORDS words drawn from the main path's
+# orths, fused at RNN_WEIGHT; streamed in blocks of RNN_STREAM_BLOCK; the
+# recognizer's n-best depth; lattices rescored and trained on
+RNN_EMBED, RNN_HIDDEN, RNN_EPOCHS, RNN_WEIGHT = 64, 128, 10, 0.5
+RNN_SENTENCES, RNN_SENTENCE_WORDS, RNN_STREAM_BLOCK = 2000, 12, 128
+RNN_NBEST, RNN_LATTICES = 10, 4
+# decode frames profiled per path (launches and device time per frame)
+PROFILE_FRAMES = 50
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -623,6 +645,312 @@ def fmllr_phase(s, dev, corpus, batch, feats, n_frames, base, say, reset_counts,
     return counts
 
 
+def rnn_fusion_phase(s, dev, samples, lengths, corpus, batch, feats, n_frames, main_rate, rng,
+                     say, reset_counts, read_counts):
+    """The neural LM and the second pass at the main path's width: an RNN
+    LM trained on the card, the fused decode from audio (B=64 x 10 s) under
+    the production beam beside the n-gram-only decoder, the fused decode on
+    the card against the CPU, the fused stream with its bounded pool, the
+    recognizer with lattices and n-best lists, RNN rescoring and confusion
+    networks of its lattices, and one MMI EBW update from them (the card's
+    accumulators against the CPU's)."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.align.aligner import BatchAligner
+    from rasr_tpu_torch.align.graph import build_linear_graph
+    from rasr_tpu_torch.lattice import flf
+    from rasr_tpu_torch.lattice.lattice import decoder_lattice
+    from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
+    from rasr_tpu_torch.models.lm.rnn import RnnLm
+    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+    from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
+    from rasr_tpu_torch.search.decoder import TreeDecoder
+    from rasr_tpu_torch.search.rnn_fusion import build_rnn_fusion, cell_step, word_scores
+    from rasr_tpu_torch.search.streaming import StreamingDecoder
+    from rasr_tpu_torch.device import cuda_ms
+    from rasr_tpu_torch.train import discriminative
+
+    # ---- the RNN LM, trained on the card
+    words = [lemma.primary_orth for lemma in s.lexicon.lemmata if not lemma.special]
+    text = [list(rng.choice(words, size=RNN_SENTENCE_WORDS)) for _ in range(RNN_SENTENCES)]
+    unseen = len(set(words) - {w for sent in text for w in sent})
+    # a one-epoch warm-up on a slice of the text: the first launches of the
+    # training's kernels (cuBLAS handles, runtime-compiled elementwise ones)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    RnnLm.train_from_text(text[:100], embed_dim=RNN_EMBED, hidden_dim=RNN_HIDDEN, epochs=1,
+                          device=dev)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rnn = RnnLm.train_from_text(text, embed_dim=RNN_EMBED, hidden_dim=RNN_HIDDEN,
+                                epochs=RNN_EPOCHS, device=dev)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    losses = rnn.train_losses
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"rnn training: the loss did not fall: {losses}")
+    V = len(rnn.vocab)
+    say(f"rnn lm E={RNN_EMBED} H={RNN_HIDDEN} V={V} ({unseen} of {len(words)} words unseen) on "
+        f"{RNN_SENTENCES} x {RNN_SENTENCE_WORDS} words: {RNN_EPOCHS} full-batch Adam epochs in "
+        f"{train_ms:.1f} ms ({train_ms / RNN_EPOCHS:.1f} ms per epoch, set-up included; a "
+        f"1-epoch warm-up on 100 sentences {warm_ms:.1f} ms before it); loss "
+        f"{' '.join(f'{x:.3f}' for x in losses)}")
+
+    # ---- the fused decode from audio, beside the n-gram-only main path
+    fusion = build_rnn_fusion(rnn, s.lm.vocab, weight=RNN_WEIGHT, device=dev)
+    oov = sum(rnn.vocab.get(w) is None for w in words)
+    dec = TreeDecoder(s.tree, s.decoder.lm, s.beam, rnn_fusion=fusion, device=dev,
+                      tables=s.decoder.tables)
+    B, K, R, H = samples.shape[0], dec.cfg.max_hyps, dec.cfg.word_end_limit, fusion.hidden
+
+    def run(x, n):
+        st = Stages()
+        f, nf = st("frontend", lambda: s.frontend(x, n))
+        e = st("scorer", lambda: s.scorer(f))
+        handle = st("decode", lambda: dec.decode_scores_device(e, nf))
+        return e, nf, handle, st, dec.results_from_device(handle)
+
+    run(samples[:, :16000], torch.full_like(lengths, 16000))  # warm-up on 1 s, as slice A's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    e, nf, handle, st, results = run(samples, lengths)
+    wall = time.perf_counter() - t0
+    counts = read_counts("rnn-fusion path", gmm_scores, mfcc_frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    T = e.shape[1]
+    if len(results) != B or not all(np.isfinite(r.score) and r.words for r in results):
+        raise AssertionError("rnn-fusion decode: an empty or non-finite result")
+    pool_bytes = 2 * handle.finals.cs.numel() * 4
+    rate = B * AUDIO_S / wall
+    say(f"rnn-fusion path B={B} x {AUDIO_S:g} s ({T} frames, {oov} n-gram words unknown to the "
+        f"RNN LM): {st}; {rate:.1f} audio-s/s against the n-gram-only main path's "
+        f"{main_rate:.1f} ({rate / main_rate:.2f}x); state pools {pool_bytes / 2**30:.2f} GiB "
+        f"(2 x {B} x {R * T + 1} x {H} float32); peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {counts}")
+    say(f"rnn-fusion sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
+    del handle
+    # the two decoders on these emissions in turns (n-gram, fused, fused,
+    # n-gram): the host's speed drifts within a call, so one batch of each
+    # at different times compares the host as much as the decoders
+    turns = {"n-gram only": [], "rnn fusion": []}
+    for label, d in (("n-gram only", s.decoder), ("rnn fusion", dec), ("rnn fusion", dec),
+                     ("n-gram only", s.decoder)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.results_from_device(d.decode_scores_device(e, nf))
+        turns[label].append(B * AUDIO_S / (time.perf_counter() - t0))
+    say("decode alone in turns on the batch's emissions (audio-s/s): " + "; ".join(
+        f"{k} {' / '.join(f'{x:.1f}' for x in v)}" for k, v in turns.items())
+        + f"; fused / n-gram {sum(turns['rnn fusion']) / sum(turns['n-gram only']):.2f}")
+    frames = torch.full((B,), PROFILE_FRAMES, dtype=torch.int64, device=dev)
+    for label, d in (("n-gram only", s.decoder), ("rnn fusion", dec)):
+        prof = profile_loop(lambda: d.decode_scores_device(e[:, :PROFILE_FRAMES], frames),
+                            PROFILE_FRAMES)
+        say(f"decode frame loop ({label}, first {PROFILE_FRAMES} frames): {describe(prof)}; per "
+            f"frame {prof['device_ms'] / PROFILE_FRAMES:.3f} device ms of "
+            f"{prof['wall_ms'] / PROFILE_FRAMES:.3f} wall ms")
+    # the word-end update's two products at its shapes, against their bound
+    h = torch.randn((B, R, H), device=dev)
+    c = torch.randn((B, R, H), device=dev)
+    x = fusion.emb[torch.randint(0, V, (B, R), device=dev)]
+    wid = torch.randint(0, V, (B, R), device=dev)
+    ws_ms = cuda_ms(lambda: word_scores(fusion, h, wid), 20)
+    cs_ms = cuda_ms(lambda: cell_step(fusion, x, c, h), 20)
+    E = fusion.emb.shape[1]
+    ws_bound = bound(2.0 * B * R * H * V, 4.0 * (B * R * H + H * V + V + 2 * B * R))
+    cs_bound = bound(2.0 * B * R * (E + H) * 4 * H,
+                     4.0 * (B * R * (E + 2 * H) + (E + H + 1) * 4 * H + 2 * B * R * H))
+    say(f"word_scores [{B}, {R}, {H}] x [{H}, {V}] per frame: {ws_ms:.4f} ms (CUDA events), "
+        f"bound {ws_bound[0]:.4f} ms ({ws_bound[1]}), logits {B * R * V * 4 / 1e6:.1f} MB; "
+        f"cell_step {cs_ms:.4f} ms, bound {cs_bound[0]:.4f} ms ({cs_bound[1]})")
+
+    # ---- card == CPU on B=4 x 3 s with the same tables
+    small = int(3.0 * 16000)
+    f4, nf4 = s.frontend(samples[:4, :small], torch.full((4,), small, device=dev))
+    e4 = s.scorer(f4)
+    dec_cpu = TreeDecoder(s.tree, s.decoder.lm.to("cpu"), s.beam, rnn_fusion=fusion.to("cpu"),
+                          device="cpu", tables=s.decoder.tables.to("cpu"))
+    a = dec.decode_scores(e4, nf4)
+    b = dec_cpu.decode_scores(e4.cpu(), nf4.cpu())
+    for x_, y_ in zip(a, b):
+        if x_.words != y_.words or abs(x_.score - y_.score) > DECODE_RTOL * max(1.0, abs(y_.score)):
+            raise AssertionError(f"rnn fusion cuda vs cpu: {x_.words} {x_.score} vs "
+                                 f"{y_.words} {y_.score}")
+    say(f"cuda == cpu fused decode on B=4 x 3 s: {[r.orth[:30] for r in a]}")
+
+    # ---- the fused stream over the timed batch's emissions
+    offline = results
+    sd = StreamingDecoder(dec).restart(B, nf)
+    t0 = time.perf_counter()
+    for lo in range(0, T, RNN_STREAM_BLOCK):
+        block = e[:, lo: lo + RNN_STREAM_BLOCK]
+        sd.feed(block)
+        rows = sd._carry.cs.shape[1]
+        if rows != 2 * K + R * block.shape[1]:
+            raise AssertionError(f"rnn-fusion stream: {rows} pool rows after a feed of "
+                                 f"{block.shape[1]} frames")
+    streamed = sd.finalize()
+    stream_s = time.perf_counter() - t0
+    if [r.words for r in streamed] != [r.words for r in offline]:
+        raise AssertionError("rnn-fusion stream: other words than the offline decode")
+    say(f"rnn-fusion stream in blocks of {RNN_STREAM_BLOCK}: {B * AUDIO_S / stream_s:.1f} "
+        f"audio-s/s; pool {2 * K + R * RNN_STREAM_BLOCK} rows per utterance after each full "
+        f"feed ({2 * 2 * K * B * H * 4 / 2**30 + 2 * R * RNN_STREAM_BLOCK * B * H * 4 / 2**30:.3f}"
+        f" GiB); streamed == offline")
+    del sd, e
+
+    # ---- the recognizer, n-gram only and fused: lattices and n-best lists.
+    # A list exists for each lattice with final nodes; it must be flf.n_best
+    # of the archived lattice (which ranks paths by their cost before the
+    # final score, as the reference's does: rank 0 need not be the
+    # cheapest). The cheapest path of each lattice is checked against the
+    # best path where that holds a word: the same words on the n-gram
+    # lattices; under fusion a lattice node merges records of one (frame,
+    # n-gram state) whatever their RNN histories, so a path may join arcs
+    # scored in different histories and the cheapest one is the best path
+    # or a join no dearer than it (within float32 rounding).
+    from rasr_tpu_torch.lattice.lattice import Lattice
+    from rasr_tpu_torch.utils.archive import FileArchive
+
+    def orths(lat, path):
+        return [lat.lemma_orths[a.lemma] for a in path
+                if a.lemma >= 0 and not lat.lemma_orths[a.lemma].startswith("[")]
+
+    for label, d in (("n-gram only", s.decoder), ("rnn fusion", dec)):
+        with tempfile.TemporaryDirectory() as tmp:
+            nbest_path, lat_path = os.path.join(tmp, "nbest"), os.path.join(tmp, "lat")
+            rec = OfflineRecognizer(s.frontend, s.scorer, d, lattice_archive=lat_path,
+                                    nbest_file=nbest_path, nbest=RNN_NBEST)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            rec_results = rec.run(CorpusVisitor(corpus, batch_size=len(batch.names)))
+            wall = time.perf_counter() - t0
+            rec_counts = read_counts(f"{label} recognizer with n-best lists", gmm_scores,
+                                     mfcc_frames)
+            lists = {}
+            with open(nbest_path) as fh:
+                for line in fh:
+                    seg, rank, score, *hyp = line.split()
+                    lists.setdefault(seg, []).append((int(rank), float(score), hyp))
+            with FileArchive(lat_path, "r") as ar:
+                lats = {seg: Lattice.unpack(ar.read(seg)) for seg in lists}
+        same = cheaper = 0
+        for r in rec_results:
+            if r.segment_name not in lists:
+                continue
+            lat, got = lats[r.segment_name], lists[r.segment_name]
+            want = flf.n_best(lat, RNN_NBEST)
+            if [(k, h) for k, _, h in got] != [(k, orths(lat, p)) for k, (_, p) in
+                                               enumerate(want)] or any(
+                    abs(sc - c) > 1e-3 + 1e-6 * abs(c) for (_, sc, _), (c, _) in zip(got, want)):
+                raise AssertionError(f"{label} recognizer: the n-best list of {r.segment_name} "
+                                     f"is not flf.n_best of its lattice")
+            if not r.words:
+                continue
+            cost, path = flf.best_path(lat)
+            if orths(lat, path) == r.words:
+                same += 1
+            elif d is dec and cost < r.score + 1e-5 * abs(r.score):
+                cheaper += 1
+            else:
+                raise AssertionError(f"{label} recognizer: the cheapest path of the lattice of "
+                                     f"{r.segment_name} ({cost}) is not the best path "
+                                     f"({r.score})")
+        if not same:
+            raise AssertionError(f"{label} recognizer: no lattice holds its best path")
+        say(f"{label} recognizer: {len(rec_results)} segments, "
+            f"{float(batch.lengths.sum()) / 16000 / wall:.1f} audio-s/s with lattices and "
+            f"{RNN_NBEST}-best lists ({sum(map(len, lists.values()))} lines, each list "
+            f"flf.n_best of its lattice); the lattice's cheapest path is the best path on {same}"
+            f" segments, a join of histories no dearer on {cheaper}; launches {rec_counts}")
+
+    # ---- the second pass: RNN rescoring and confusion networks
+    handle = dec.decode_scores_device(s.scorer(feats), n_frames)
+    lats = [decoder_lattice(handle, s.tree.lemmas, b) for b in range(len(batch.names))]
+
+    def paths(lat):
+        count = np.zeros(lat.num_nodes)
+        count[0] = 1.0
+        out = lat.out_arcs()
+        for node in lat.topological_order():
+            for ai in out[node]:
+                count[lat.arcs[ai].to_node] += count[node]
+        return sum(count[n] for n in lat.final_scores)
+
+    npaths = [paths(lat) for lat in lats]
+    picked = sorted((i for i in range(len(lats)) if npaths[i] > 1), key=lambda i: npaths[i])
+    picked = picked[:RNN_LATTICES]
+    if len(picked) < RNN_LATTICES:
+        raise AssertionError("rnn-fusion: too few lattices with more than one path")
+    synt = {i: rnn.vocab.get(o) for i, o in enumerate(lats[0].lemma_orths)}
+    t0 = time.perf_counter()
+    rescored = [flf.rescore_lm(lats[i], rnn, synt) for i in picked]
+    rescore_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cns = [flf.cn_decode(flf.confusion_network(lat)) for lat in rescored]
+    cn_ms = (time.perf_counter() - t0) * 1e3
+    say(f"rnn rescoring of {len(picked)} lattices ({[int(npaths[i]) for i in picked]} paths, "
+        f"{[len(lats[i].arcs) for i in picked]} arcs -> {[len(x.arcs) for x in rescored]}): "
+        f"{rescore_ms:.1f} ms ({len(rnn._cache)} RNN states cached); their confusion networks "
+        f"{cn_ms:.1f} ms: {[' '.join(w)[:30] for w in cns]}")
+
+    # ---- one MMI EBW update of the main path's GMMs from those lattices
+    topo = HmmTopology(states_per_phone=3, silence_states=1)
+    trans = TransitionModel()
+    M, Kd, D = s.mixtures.means.shape
+    cpu_scorer = GmmFeatureScorer(s.mixtures, device="cpu")
+    graphs = [build_linear_graph(batch.segments[i].orth, s.lexicon, s.tying, topo)
+              for i in picked]
+    accs = {}
+    for label, scorer, device in (("card", s.scorer, dev), ("cpu", cpu_scorer, "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_ = feats[picked].to(device)
+        n_ = n_frames[picked].to(device)
+        aligner = BatchAligner(scorer)
+        als = aligner.align(x_, graphs, n_)
+        labels = np.full(x_.shape[:2], -1, np.int32)
+        for j, al in enumerate(als):
+            labels[j, : al.num_frames] = al.emission_ids
+        acc = discriminative.MmiAccumulators.zeros(M, Kd, D)
+        discriminative.accumulate_numerator(acc, s.mixtures, x_, labels, device=device)
+        for j, i in enumerate(picked):
+            discriminative.accumulate_denominator_from_lattice(
+                acc, s.mixtures, x_[j, : int(n_[j])].cpu().numpy(), lats[i], aligner,
+                s.lexicon, s.tying, topo, trans)
+        accs[label] = acc, (time.perf_counter() - t0) * 1e3
+    (acc, acc_ms), (acc_cpu, acc_cpu_ms) = accs["card"], accs["cpu"]
+    err = 0.0
+    for part in ("num", "den"):
+        for stat in ("count", "sum", "sumsq"):
+            got, want = getattr(getattr(acc, part), stat), getattr(getattr(acc_cpu, part), stat)
+            scale = max(float(np.abs(want).max()), 1e-30)
+            e_ = float(np.abs(got - want).max()) / scale
+            if not np.isfinite(got).all() or e_ > 1e-4:
+                raise AssertionError(f"mmi {part}.{stat}: card vs cpu off by {e_:.2e} of the "
+                                     f"largest entry")
+            err = max(err, e_)
+    t0 = time.perf_counter()
+    updated = discriminative.ebw_update(s.mixtures, acc)
+    ebw_ms = (time.perf_counter() - t0) * 1e3
+    moved = float(np.abs(updated.means - s.mixtures.means).max())
+    if not (np.isfinite(updated.means).all() and (updated.variances > 0).all()):
+        raise AssertionError("mmi: the EBW update is not a valid mixture set")
+    say(f"mmi on {len(picked)} lattices: accumulators card {acc_ms:.1f} ms, cpu "
+        f"{acc_cpu_ms:.1f} ms, card == cpu within {err:.2e} of the largest entry "
+        f"(num count {acc.num.count.sum():.1f}, den count {acc.den.count.sum():.1f}); EBW "
+        f"update {ebw_ms:.1f} ms (host), means moved up to {moved:.3f}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -895,6 +1223,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated(dev)
     check_outputs(f, e, nf, results, BATCH)
     report("main path (production beam)", stage, TIMED_BATCHES, BATCH, launches, peak)
+    main_rate = TIMED_BATCHES * BATCH * AUDIO_S / stage.sum()
     say(f"sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
     # the best-path read of a decoded batch, warm: the device walk and its
     # one payload (the walk alone in CUDA events)
@@ -1100,6 +1429,12 @@ def main() -> int:
     # ----------- fMLLR: speaker transforms estimated and fed to the recognizer
     fmllr_launches = fmllr_phase(s, dev, corpus, batch, fb, nb, rec_runs["best-only"], say,
                                  reset_counts, read_counts)
+
+    # -------- rnn-fusion: the neural LM in the first pass, and the second pass
+    t_a = time.time()
+    rnn_launches = rnn_fusion_phase(s, dev, samples, lengths, corpus, batch, fb, nb, main_rate,
+                                    rng, say, reset_counts, read_counts)
+    say(f"rnn-fusion phase {time.time() - t_a:.1f} s, launches {rnn_launches}")
     corpus_dir.cleanup()
     del fb
 

@@ -7,7 +7,8 @@ Each function takes a ``rasr_tpu`` object, reads its arrays as numpy
 only read attributes, so they accept the JAX objects directly. (The LDA
 matrix needs no converter: ``FeatureFrontend`` takes it as a numpy
 array.) ``nn_params_from_flax`` turns a flax parameter tree into a
-``state_dict`` for one of the port's networks.
+``state_dict`` for one of the port's networks, ``rnn_lm_from_flax`` the
+JAX ``RnnLm`` into the port's.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from .device import resolve
 from .models.allophone import Allophone, AllophoneState
 from .models.gmm import MixtureSet, ScoringTensors
 from .models.lm.ngram import NgramTables
+from .models.lm.rnn import LstmLm, RnnLm
 from .ops.frontend import FrontendParams
 from .search.decoder import BigramTables, TreeTables
+from .search.rnn_fusion import RnnFusionTables
 from .train.lfmmi import DenseFsa
 
 
@@ -100,6 +103,8 @@ def _tables_from_jax(cls, tables, device):
             fields[f.name] = int(v)
         elif f.type in ("bool", bool):
             fields[f.name] = bool(v)
+        elif f.type in ("float", float):
+            fields[f.name] = float(v)
         else:
             fields[f.name] = None if v is None else _tensor(v, device, index=True)
     return cls(**fields)
@@ -172,3 +177,37 @@ def nn_params_from_flax(model: nn.Module, params) -> dict:
         out[f"{name}.weight"] = weight.contiguous()
         out[f"{name}.bias"] = host(tree["bias"]).reshape(-1)
     return out
+
+
+def lstm_lm_params_from_flax(params) -> dict:
+    """The flax ``LstmLmModule``'s parameter tree -> a ``state_dict`` for
+    :class:`~.models.lm.rnn.LstmLm`: the cell's kernels concatenated in
+    gate order i, f, g, o, ``proj``'s kernel transposed."""
+
+    def host(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    lstm = params["lstm"]
+    return {
+        "embed.weight": host(params["embed"]["embedding"]),
+        "wx": torch.cat([host(lstm[f"i{g}"]["kernel"]) for g in "ifgo"], dim=1),
+        "wh": torch.cat([host(lstm[f"h{g}"]["kernel"]) for g in "ifgo"], dim=1),
+        "b": torch.cat([host(lstm[f"h{g}"]["bias"]) for g in "ifgo"]),
+        "proj.weight": host(params["proj"]["kernel"]).T.contiguous(),
+        "proj.bias": host(params["proj"]["bias"]),
+    }
+
+
+def rnn_lm_from_flax(rnn_lm, device=None) -> RnnLm:
+    """``rasr_tpu.models.lm.rnn.RnnLm`` (its flax parameters, vocabulary
+    and dimensions) -> the port's ``RnnLm`` on ``device``."""
+    m = rnn_lm.module
+    model = LstmLm(int(m.vocab_size), int(m.embed_dim), int(m.hidden_dim))
+    model.load_state_dict(lstm_lm_params_from_flax(rnn_lm.params))
+    return RnnLm(model, rnn_lm.vocab, cache_size=rnn_lm._cache_size, device=device)
+
+
+def rnn_fusion_tables_from_jax(tables, device=None) -> RnnFusionTables:
+    """``rasr_tpu.search.rnn_fusion.RnnFusionTables`` -> the port's (pass
+    it as ``TreeDecoder(rnn_fusion=...)``)."""
+    return _tables_from_jax(RnnFusionTables, tables, device)

@@ -10,11 +10,14 @@ once; per-segment structured records keep the same semantic fields
 The port's copy of ``rasr_tpu/pipeline/recognizer.py``: each batch runs
 frontend -> scorer -> ``decode_scores_device`` on the decoder's device,
 and the best paths and the lattices come from that one decode's handle
-(its records reach the host once per batch, and only when lattices are
-written). Per-speaker feature transforms (fMLLR, ``train/fmllr.py``)
-apply on the device as one batched ``[B, D, D]`` product before the
-scorer. Two branches of the reference are not ported and raise: n-best
-lists (``lattice/flf.py``) and the sharded decode (``mesh``).
+(its records reach the host once per batch, and only when lattices or
+n-best lists are written). Per-speaker feature transforms (fMLLR,
+``train/fmllr.py``) apply on the device as one batched ``[B, D, D]``
+product before the scorer. A decoder that carries ``rnn_fusion``
+recognizes with the fused RNN LM. The n-best file holds
+``<segment> <rank> <score> <words>`` lines from ``flf.n_best`` of each
+decode lattice. One branch of the reference is not ported and raises:
+the sharded decode (``mesh``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ..lattice.evaluator import CorpusEvaluator
+from ..lattice.flf import n_best
 from ..lattice.lattice import decoder_lattice
 from ..models.scorer import FeatureScorer
 from ..ops.frontend import FeatureFrontend
@@ -56,9 +60,6 @@ class OfflineRecognizer:
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded decode (parallel/) is not ported yet (ROADMAP Queue 1 item 11)")
-        if nbest_file:
-            raise NotImplementedError(
-                "n-best lists (lattice/flf.py) are not ported yet (ROADMAP Queue 1 item 9)")
         self.frontend = frontend
         self.scorer = scorer
         self.decoder = decoder
@@ -82,6 +83,21 @@ class OfflineRecognizer:
         #: optional per-speaker fMLLR transforms {speaker: W [D, D+1]}
         #: ("*" = default; see train/fmllr.py)
         self.feature_transforms = feature_transforms
+        #: optional n-best output: the ``nbest`` best paths of each
+        #: segment's lattice, one ``<segment> <rank> <score> <words>`` line
+        #: each (non-word lemmas such as silence left out of the words)
+        self.nbest_file = nbest_file
+        self.nbest = nbest
+
+    def _nbest_lines(self, seg, lat) -> List[str]:
+        lines = []
+        for rank, (score, path) in enumerate(n_best(lat, self.nbest)):
+            words = " ".join(
+                lat.lemma_orths[a.lemma] for a in path
+                if a.lemma >= 0 and not lat.lemma_orths[a.lemma].startswith("[")
+            )
+            lines.append(f"{seg.full_name} {rank} {score:.4f} {words}")
+        return lines
 
     def _cached_features(self, batch):
         from .feature_extractor import load_features
@@ -120,6 +136,7 @@ class OfflineRecognizer:
             FileArchive(self.lattice_archive, "a") if self.lattice_archive else None
         )
         ctm = open(self.ctm_file, "w", encoding="utf-8") if self.ctm_file else None
+        nbf = open(self.nbest_file, "w", encoding="utf-8") if self.nbest_file else None
         try:
             batches = (
                 prefetch_batches(visitor) if self.prefetch else visitor.batches()
@@ -156,9 +173,13 @@ class OfflineRecognizer:
                         frames=int(frames[i]),
                         rtf=rtf,
                     )
-                    if archive is not None:
+                    if archive is not None or nbf is not None:
                         lat = decoder_lattice(handle, self.decoder.tree.lemmas, i)
-                        archive.write(seg.full_name, lat.pack())
+                        if archive is not None:
+                            archive.write(seg.full_name, lat.pack())
+                        if nbf is not None:
+                            for line in self._nbest_lines(seg, lat):
+                                nbf.write(line + "\n")
                     if ctm is not None:
                         for line in self._ctm_lines(seg, res):
                             ctm.write(line + "\n")
@@ -167,6 +188,8 @@ class OfflineRecognizer:
                 archive.close()
             if ctm is not None:
                 ctm.close()
+            if nbf is not None:
+                nbf.close()
         report = self.evaluator.report()
         self.log("corpus done", **report, mean_rtf=self.rtf.mean)
         return results

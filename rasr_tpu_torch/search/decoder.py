@@ -38,6 +38,13 @@ frame, batched over utterances:
 7. utterances past their ``n_frames`` freeze, and each utterance's
    final beam is captured at ``t == n_frames - 1``.
 
+Under first-pass RNN-LM fusion (``search/rnn_fusion.py``) each slot also
+carries the row of its RNN state in a pool beside the beam (a
+:class:`FusedCarry`): the row rides every candidate column of steps 1-6,
+step 5 adds the fused RNN cost of each word-end record to its LM cost and
+writes the records' new states to the frame's R pool rows, and the final
+selection adds the fused ``</s>`` cost.
+
 The semantics are the reference's, not its TPU layouts: no int32 bit
 carriers, no riding state rows or (bp, class) payload packing, no
 quarter-row gathers, no sort widths padded to powers of 2; the history
@@ -72,6 +79,7 @@ import torch
 
 from ..device import resolve
 from ..models.lm.ngram import LookupTables, NgramTables, lookup_prepared, prepare_lookup
+from .rnn_fusion import RnnFusionTables, cell_step, word_scores
 from .tree import BIG, WORD_NONE, PrefixTree
 
 
@@ -395,6 +403,26 @@ class Carry(NamedTuple):
     phi: torch.Tensor
 
 
+class FusedCarry(NamedTuple):
+    """:class:`Carry` under RNN-LM fusion (``search/rnn_fusion.py``), plus
+    each slot's and each final's row of the hidden-state pools ``cs`` /
+    ``hs`` ``[B, P + 1, H]``."""
+
+    state: torch.Tensor
+    lms: torch.Tensor
+    score: torch.Tensor
+    bp: torch.Tensor
+    fstate: torch.Tensor
+    flm: torch.Tensor
+    fscore: torch.Tensor
+    fbp: torch.Tensor
+    phi: torch.Tensor
+    rnn_row: torch.Tensor  # [B, K] i64
+    f_rnnrow: torch.Tensor
+    cs: torch.Tensor  # [B, P + 1, H] f32
+    hs: torch.Tensor
+
+
 class Records(NamedTuple):
     """Per-frame word-end records ``[T, B, R]`` (the traceback store). The
     integer columns are int32, as the reference's: record ids ``t * R + r``,
@@ -408,9 +436,12 @@ class Records(NamedTuple):
     lm: torch.Tensor  # i32 LM state after the word
 
 
-def init_carry(B: int, cfg: BeamConfig, lm: NgramTables, device) -> Carry:
+def init_carry(B: int, cfg: BeamConfig, lm: NgramTables, device, rnn=None,
+               rnn_pool: int = 0):
     """One live hypothesis per utterance at the tree root in the LM start
-    state; every other slot BIG."""
+    state; every other slot BIG. With RNN fusion (``rnn``) the pools hold
+    ``rnn_pool`` writable rows and the state after ``<s>`` at row
+    ``rnn_pool``, where every slot starts (a :class:`FusedCarry`)."""
     K = cfg.max_hyps
     state0 = torch.zeros((B, K), dtype=torch.int64, device=device)
     lm0 = torch.full((B, K), lm.start_state, dtype=torch.int64, device=device)
@@ -418,7 +449,36 @@ def init_carry(B: int, cfg: BeamConfig, lm: NgramTables, device) -> Carry:
     score0[:, 0] = 0.0
     bp0 = torch.full((B, K), -1, dtype=torch.int64, device=device)
     phi0 = torch.zeros((B, K), dtype=torch.float32, device=device)  # phi(root) = 0
-    return Carry(state0, lm0, score0, bp0, state0, lm0, score0, bp0, phi0)
+    c = Carry(state0, lm0, score0, bp0, state0, lm0, score0, bp0, phi0)
+    if rnn is None:
+        return c
+    H = rnn.hidden
+    cs = torch.zeros((B, rnn_pool + 1, H), dtype=torch.float32, device=device)
+    hs = torch.zeros((B, rnn_pool + 1, H), dtype=torch.float32, device=device)
+    cs[:, rnn_pool] = rnn.init_c
+    hs[:, rnn_pool] = rnn.init_h
+    row0 = torch.full((B, K), rnn_pool, dtype=torch.int64, device=device)
+    return FusedCarry(*c, row0, row0, cs, hs)
+
+
+def _compact_rnn_carry(c: FusedCarry, tb_rows: int) -> FusedCarry:
+    """A stream's pool compaction between feeds: the only rows a later
+    frame can read are those of the live beam (``rnn_row``) and of the
+    frozen finals (``f_rnnrow``), at most 2K per utterance. They move to
+    rows ``[0, 2K)`` and the pool is sized for the next block's ``tb_rows``
+    writes: 2K + R x Tb rows whatever the stream's length."""
+    B, K = c.rnn_row.shape
+    bidx = torch.arange(B, device=c.rnn_row.device)[:, None]
+
+    def compact(pool):
+        new = torch.zeros((B, 2 * K + tb_rows, pool.shape[2]), dtype=pool.dtype,
+                          device=pool.device)
+        new[:, :K] = pool[bidx, c.rnn_row]
+        new[:, K: 2 * K] = pool[bidx, c.f_rnnrow]
+        return new
+
+    row = torch.arange(K, device=c.rnn_row.device).expand(B, K)
+    return c._replace(rnn_row=row, f_rnnrow=row + K, cs=compact(c.cs), hs=compact(c.hs))
 
 
 class _Step:
@@ -427,8 +487,9 @@ class _Step:
 
     def __init__(self, tree: TreeTables, lm: NgramTables, prep: LookupTables,
                  cfg: BeamConfig, wmax: int, hroot: int, kbranch: int,
-                 bla: Optional[BigramTables] = None):
+                 bla: Optional[BigramTables] = None, rnn=None):
         self.tree, self.lm, self.prep, self.cfg = tree, lm, prep, cfg
+        self.rnn = rnn
         self.wmax, self.hroot, self.kbranch = wmax, hroot, kbranch
         use_la = tree.has_lookahead and cfg.lookahead_scale != 0.0
         la_coeff = cfg.lm_scale * cfg.lookahead_scale
@@ -553,13 +614,14 @@ class _Step:
         br_cls = torch.where(ok, tree.branch_cls[arc], 0)
         return br_state, br_cls, p_br, dphi, [per_slot(x.gather(1, bidx)) for x in hyp_cols]
 
-    def _root_fanout(self, state, lms, score, bp, cls):
+    def _root_fanout(self, state, lms, score, bp, cls, rnn_row=None):
         """Root re-entry: the best root hypothesis expands all G root arcs,
         the next H-1 only the first gcap (static promise order). Returns
         the ``[B, Wr]`` pre-emission scores (with the lookahead correction
         of the hypothesis' class), destination states, their emission
-        classes, the source LM states and backpointers, and the applied
-        corrections (None without a bigram lookahead)."""
+        classes, the source LM states, backpointers and RNN pool rows (None
+        without fusion), and the applied corrections (None without a
+        bigram lookahead)."""
         tree, H, gcap = self.tree, self.hroot, self.gcap
         B, G = state.shape[0], tree.root_degree
         root_sel = torch.where(state == 0, score, BIG)
@@ -586,14 +648,16 @@ class _Step:
             return torch.cat([h[:, :1].expand(B, G), h[:, 1:].repeat_interleave(gcap, dim=1)],
                              dim=1)
 
+        h_rnn = None if rnn_row is None else per_hyp(rnn_row.gather(1, hidx))
         return (p_root, fan(tree.root_dst), fan(tree.root_cls), per_hyp(h_lm), per_hyp(h_bp),
-                root_phi)
+                h_rnn, root_phi)
 
-    def __call__(self, c: Carry, emis_t: torch.Tensor, t: int,
-                 n_frames: torch.Tensor, recs: Records, row: int) -> Carry:
+    def __call__(self, c, emis_t: torch.Tensor, t: int,
+                 n_frames: torch.Tensor, recs: Records, row: int, pool_row: int = 0):
         """Frame ``t`` (global: record ids ``t * R + r``); its word-end
-        records go to row ``row`` of ``recs``."""
-        tree, cfg, bla = self.tree, self.cfg, self.bla
+        records go to row ``row`` of ``recs`` and, under RNN fusion, their
+        states to pool rows ``pool_row + r``."""
+        tree, cfg, bla, rnn = self.tree, self.cfg, self.bla, self.rnn
         SENT = tree.sentinel
         K, R, L = cfg.max_hyps, cfg.word_end_limit, self.L
         B = c.state.shape[0]
@@ -619,13 +683,16 @@ class _Step:
             p_d1, p_d2 = p_d1 + dd1, p_d2 + dd2
             phi_d1, phi_d2 = phi + dd1, phi + dd2
 
-        # ---- branch fan: top-Kb hyps at fan-out states
+        # ---- branch fan: top-Kb hyps at fan-out states (the RNN pool row
+        # rides as the last payload column)
+        rnn_row = c.rnn_row if rnn is not None else None
         br_state, br_cls, p_br, br_dphi, br_hyp = self._branch_fan(
-            state, score, [lms, bp] + ([phi] if bla is not None else []), cls)
+            state, score, [lms, bp] + ([phi] if bla is not None else [])
+            + ([rnn_row] if rnn is not None else []), cls)
         br_lm, br_bp = br_hyp[:2]
 
-        p_root, root_state, root_cls, root_lm, root_bp, root_phi = self._root_fanout(
-            state, lms, score, bp, cls)
+        p_root, root_state, root_cls, root_lm, root_bp, root_rnn, root_phi = self._root_fanout(
+            state, lms, score, bp, cls, rnn_row)
         sections = [[state, lms, bp, p_loop, tree.emission_class[state]],
                     [d1, lms, bp, p_d1, tree.dense1_cls[state]],
                     [d2, lms, bp, p_d2, tree.dense2_cls[state]],
@@ -635,6 +702,9 @@ class _Step:
             br_phi = br_hyp[2] if br_dphi is None else br_hyp[2] + br_dphi
             for sec, x in zip(sections, (phi, phi_d1, phi_d2, br_phi)):
                 sec.append(x)
+        if rnn is not None:
+            for sec, x in zip(sections, (rnn_row, rnn_row, rnn_row, br_hyp[-1])):
+                sec.append(x)
         if self.rsel:
             # root select: pre-emission top-R3 over the root fan-out; the
             # survivors skip the recombination and join the word ends
@@ -642,6 +712,7 @@ class _Step:
             rs_pre = torch.clamp(p_root.gather(1, rs_idx), max=BIG)
             rs_state = root_state.gather(1, rs_idx)
             rs_lm, rs_bp = root_lm.gather(1, rs_idx), root_bp.gather(1, rs_idx)
+            rs_rnn = root_rnn.gather(1, rs_idx) if rnn is not None else None
             if cfg.deferred_emission:
                 rs_score = rs_pre
             else:
@@ -650,8 +721,10 @@ class _Step:
                 )
         else:
             sections.append([root_state, root_lm, root_bp, p_root, root_cls]
-                            + ([root_phi] if bla is not None else []))
-        cand_state, cand_lm, cand_bp, cand_pre, cand_cls, *cand_phi = (
+                            + ([root_phi] if bla is not None else [])
+                            + ([root_rnn] if rnn is not None else []))
+        # cand_x: the applied correction (bigram lookahead), then the RNN row
+        cand_state, cand_lm, cand_bp, cand_pre, cand_cls, *cand_x = (
             torch.cat(cols, dim=1) for cols in zip(*sections)
         )
         cand_pre = torch.clamp(cand_pre, max=BIG)
@@ -663,9 +736,9 @@ class _Step:
             # expansion limit: top-E by pre-emission score, then the
             # emission for the E survivors only
             eidx = _stable_order(cand_pre, self.elimit)
-            cand_state, cand_lm, cand_bp, cand_pre, cand_cls, *cand_phi = (
+            cand_state, cand_lm, cand_bp, cand_pre, cand_cls, *cand_x = (
                 x.gather(1, eidx) for x in (cand_state, cand_lm, cand_bp, cand_pre, cand_cls,
-                                            *cand_phi)
+                                            *cand_x)
             )
             cand_score = torch.where(cand_pre < BIG / 2, cand_pre + emis(cand_cls), BIG)
         else:
@@ -686,7 +759,10 @@ class _Step:
         n_state = torch.where(n_score >= BIG / 2, SENT, cand_state.gather(1, sel))
         n_lm = cand_lm.gather(1, sel)
         n_bp = cand_bp.gather(1, sel)
-        n_phi = cand_phi[0].gather(1, sel) if bla is not None else None
+        n_phi = cand_x[0].gather(1, sel) if bla is not None else None
+        # the winner of each key keeps its own RNN row: truncated-history
+        # recombination (rnn_fusion.py)
+        n_rnn = cand_x[-1].gather(1, sel) if rnn is not None else None
 
         # ---- word ends scan the beam plus the root-select survivors
         if self.rsel:
@@ -697,8 +773,9 @@ class _Step:
             w_bp = torch.cat([n_bp, rs_bp], dim=1)
             if bla is not None:
                 n_phi = torch.cat([n_phi, root_phi.gather(1, rs_idx)], dim=1)
+            w_rnn = torch.cat([n_rnn, rs_rnn], dim=1) if rnn is not None else None
         else:
-            w_state, w_lm, w_score, w_bp = n_state, n_lm, n_score, n_bp
+            w_state, w_lm, w_score, w_bp, w_rnn = n_state, n_lm, n_score, n_bp, n_rnn
         w_phi = n_phi
         if self.lazy:
             # survivor update: each survivor takes its current node's
@@ -724,8 +801,7 @@ class _Step:
             r_pre = pre.gather(1, ridx)
             r_src = w_state.gather(1, ridx)
             r_slot = torch.zeros_like(r_src)
-            r_srclm = w_lm.gather(1, ridx)
-            r_srcbp = w_bp.gather(1, ridx)
+            r_src_w = ridx
         else:
             # two-stage exact top-R: word-end slots are sorted per state
             # by the selection rank, so slot 0 bounds its state's slots
@@ -747,8 +823,9 @@ class _Step:
             hr = torch.div(ridx, W, rounding_mode="floor")
             r_slot = ridx % W
             r_src = s_r.gather(1, hr)
-            r_srclm = w_lm.gather(1, hsel.gather(1, hr))
-            r_srcbp = w_bp.gather(1, hsel.gather(1, hr))
+            r_src_w = hsel.gather(1, hr)
+        r_srclm = w_lm.gather(1, r_src_w)
+        r_srcbp = w_bp.gather(1, r_src_w)
         r_word = we["word"][r_src, r_slot]
         r_lemma = we["lemma"][r_src, r_slot]
         r_next = we["next"][r_src, r_slot]
@@ -762,6 +839,9 @@ class _Step:
         )
         r_lmcost = torch.where(is_lm_word, cfg.lm_scale * lm_cost, 0.0)
         r_newlm = torch.where(is_lm_word, lm_next, r_srclm)
+        if rnn is not None:
+            r_lmcost, new_rnn = self._rnn_word_ends(c, w_rnn.gather(1, r_src_w), r_word,
+                                                    is_lm_word, r_lmcost, active, pool_row)
         r_score = torch.where(r_pre < BIG / 2, r_pre + r_lmcost, BIG)
         if cfg.word_end_beam < 1e8:
             we_best = r_score.min(dim=1, keepdim=True).values
@@ -782,6 +862,9 @@ class _Step:
         )
         f_lm = torch.cat([w_lm, r_newlm], dim=1).gather(1, midx)
         f_bp = torch.cat([w_bp, rec_id], dim=1).gather(1, midx)
+        if rnn is not None:
+            f_rnn = torch.cat([w_rnn, new_rnn], dim=1).gather(1, midx)
+            rnn_row = torch.where(active, f_rnn, rnn_row)
 
         # ---- freeze finished utterances, capture finals at their last frame
         state = torch.where(active, f_state, state)
@@ -799,7 +882,7 @@ class _Step:
         recs.lmcost[row] = r_lmcost
         recs.word[row] = torch.where(r_valid, r_word, WORD_NONE)
         recs.lm[row] = torch.where(r_valid, r_newlm, -1)
-        return Carry(
+        core = (
             state, lms, score, bp,
             torch.where(is_last, state, c.fstate),
             torch.where(is_last, lms, c.flm),
@@ -807,6 +890,39 @@ class _Step:
             torch.where(is_last, bp, c.fbp),
             phi,
         )
+        if rnn is None:
+            return Carry(*core)
+        return FusedCarry(*core, rnn_row, torch.where(is_last, rnn_row, c.f_rnnrow), c.cs, c.hs)
+
+    def _rnn_word_ends(self, c: FusedCarry, r_srcrow, r_word, is_lm_word, r_lmcost, active,
+                       pool_row: int):
+        """The fused RNN-LM score and state update of the R word-end records
+        ``[B, R]``: each record's source state from its carried pool row, one
+        cell step and one projection; the cost ``weight * -log p`` (or
+        ``weight * oov_cost`` for an n-gram word the RNN LM lacks, 0 for
+        silence) joins the LM cost. The new states fill pool rows
+        ``pool_row + r`` in place (silence and unknown words pass their
+        source state on; frozen utterances keep the rows' contents).
+        Returns the LM cost and the re-entries' rows."""
+        rnn = self.rnn
+        B, R = r_word.shape
+        bidx = torch.arange(B, device=r_word.device)[:, None]
+        h_src = c.hs[bidx, r_srcrow]  # [B, R, H]
+        c_src = c.cs[bidx, r_srcrow]
+        wid = rnn.word_map[torch.clamp(r_word, min=0)]
+        scored = is_lm_word & (wid >= 0)
+        wid = torch.clamp(wid, min=0)
+        rnn_cost = torch.where(
+            scored, rnn.weight * word_scores(rnn, h_src, wid),
+            torch.where(is_lm_word, rnn.weight * rnn.oov_cost, 0.0))
+        c_new, h_new = cell_step(rnn, rnn.emb[wid], c_src, h_src)
+        adv = (scored & active)[..., None]
+        keep = active[..., None]
+        rows = slice(pool_row, pool_row + R)
+        c.cs[:, rows] = torch.where(keep, torch.where(adv, c_new, c_src), c.cs[:, rows])
+        c.hs[:, rows] = torch.where(keep, torch.where(adv, h_new, h_src), c.hs[:, rows])
+        new_row = (pool_row + torch.arange(R, device=r_word.device)).expand(B, R)
+        return r_lmcost + rnn_cost, new_row
 
 
 class HostRecords(NamedTuple):
@@ -850,12 +966,13 @@ class DeviceDecode:
 
 
 def _decode_block(step: _Step, c: Carry, emissions: torch.Tensor, t0: int,
-                  n_frames: torch.Tensor):
+                  n_frames: torch.Tensor, rnn_base: int = 0):
     """Advance the beam over one block of frames ``[B, Tb, M]`` whose first
     frame is the utterances' frame ``t0`` (the counterpart of the
     reference's ``_decode_block``): returns the carry and the block's
     records ``[Tb, B, R]``. The offline decode is one block from frame 0;
-    a stream is one block per feed."""
+    a stream is one block per feed. Under RNN fusion the block's frame i
+    writes pool rows ``rnn_base + i * R + r``."""
     B, Tb, _ = emissions.shape
     R, dev = step.cfg.word_end_limit, emissions.device
 
@@ -865,18 +982,24 @@ def _decode_block(step: _Step, c: Carry, emissions: torch.Tensor, t0: int,
     recs = Records(rec(torch.int32, -1), rec(torch.float32, BIG), rec(torch.int32, -1),
                    rec(torch.float32, 0.0), rec(torch.int32, WORD_NONE), rec(torch.int32, -1))
     for i in range(Tb):
-        c = step(c, emissions[:, i], t0 + i, n_frames, recs, i)
+        c = step(c, emissions[:, i], t0 + i, n_frames, recs, i, rnn_base + i * R)
     return c, recs
 
 
-def _best(lm, prep, c: Carry, cfg: BeamConfig, nfinal: int):
+def _best(lm, prep, c: Carry, cfg: BeamConfig, nfinal: int,
+          rnn: Optional[RnnFusionTables] = None):
     """Final best-hypothesis selection (the ``</s>`` cost applied to
-    complete hypotheses at a final state; the best incomplete one when
-    there is none): ``(best_score, best_bp, end_cost)``."""
+    complete hypotheses at a final state, with the fused RNN LM's from
+    each final's pool row; the best incomplete one when there is none):
+    ``(best_score, best_bp, end_cost)``."""
     end_cost, _ = lookup_prepared(
         lm, prep, c.flm, torch.full_like(c.flm, max(lm.end_word, 0))
     )
     end_cost = cfg.lm_scale * end_cost if lm.end_word >= 0 else torch.zeros_like(end_cost)
+    if rnn is not None and rnn.end_wid >= 0:
+        bidx = torch.arange(c.hs.shape[0], device=c.hs.device)[:, None]
+        end_cost = end_cost + rnn.weight * word_scores(
+            rnn, c.hs[bidx, c.f_rnnrow], torch.full_like(c.f_rnnrow, rnn.end_wid))
     final_total = torch.where(c.fstate < nfinal, c.fscore + end_cost, BIG)
     best_idx = _first_argmin(final_total)[:, None]
     best_score = final_total.gather(1, best_idx)[:, 0]
@@ -959,7 +1082,9 @@ class TreeDecoder:
     ``search.lookahead.BigramLookahead`` or its :class:`BigramTables`
     (e.g. from ``convert.bigram_tables_from_jax``); None = unigram-only
     shaping. Lookaheads of general WFST networks (``reentry``) raise:
-    those networks (``search/wfst.py``) are not ported."""
+    those networks (``search/wfst.py``) are not ported. ``rnn_fusion``
+    (``search.rnn_fusion.build_rnn_fusion``) fuses an RNN LM into the
+    first pass; the offline decode sizes its state pools to R x T rows."""
 
     def __init__(
         self,
@@ -971,8 +1096,6 @@ class TreeDecoder:
         device=None,
         tables: Optional[TreeTables] = None,
     ):
-        if rnn_fusion is not None:
-            raise NotImplementedError("RNN-LM fusion is not ported yet")
         if bigram_la is not None and bigram_la.reentry:
             raise NotImplementedError(
                 "a lookahead with junction re-entries (general WFST networks, "
@@ -988,6 +1111,7 @@ class TreeDecoder:
         else:
             self.bla = bigram_to_device(bigram_la, tree, self.device)
         self.lm = lm_tables.to(self.device)
+        self.rnn = None if rnn_fusion is None else rnn_fusion.to(self.device)
         self.lm_prep = prepare_lookup(self.lm)
         # word-end selection cannot exceed the number of candidates
         self.cfg = dataclasses.replace(
@@ -1017,16 +1141,19 @@ class TreeDecoder:
             raise NotImplementedError("sharded / beam-partitioned decoding is not ported yet")
         emissions = torch.as_tensor(emissions, dtype=torch.float32, device=self.device)
         n_frames = torch.as_tensor(n_frames, device=self.device).to(torch.int64)
-        B, _T, _M = emissions.shape
-        carry, recs = _decode_block(self._step(), init_carry(B, self.cfg, self.lm, self.device),
-                                    emissions, 0, n_frames)
+        B, T, _M = emissions.shape
+        pool = self.cfg.word_end_limit * T if self.rnn is not None else 0
+        carry, recs = _decode_block(
+            self._step(), init_carry(B, self.cfg, self.lm, self.device, self.rnn, pool),
+            emissions, 0, n_frames)
         return self._finalize(carry, [recs], n_frames)
 
     def _step(self) -> _Step:
         """The frame step over this decoder's tables and beam."""
         K = self.cfg.max_hyps
         return _Step(self.tables, self.lm, self.lm_prep, self.cfg, self.tree.max_word_ends,
-                     min(self.cfg.root_hyps, K), min(self.cfg.branch_hyps or K, K), self.bla)
+                     min(self.cfg.root_hyps, K), min(self.cfg.branch_hyps or K, K), self.bla,
+                     self.rnn)
 
     def _finalize(self, c: Carry, blocks: Sequence[Records], n_frames: torch.Tensor,
                   live: Optional[torch.Tensor] = None) -> DeviceDecode:
@@ -1041,9 +1168,11 @@ class TreeDecoder:
             c = c._replace(
                 fstate=torch.where(lv, c.state, c.fstate), flm=torch.where(lv, c.lms, c.flm),
                 fscore=torch.where(lv, c.score, c.fscore), fbp=torch.where(lv, c.bp, c.fbp))
+            if self.rnn is not None:
+                c = c._replace(f_rnnrow=torch.where(lv, c.rnn_row, c.f_rnnrow))
         recs = blocks[0] if len(blocks) == 1 else Records(*(torch.cat(r) for r in zip(*blocks)))
         best_score, best_bp, end_cost = _best(self.lm, self.lm_prep, c, self.cfg,
-                                              self.tree.num_final_states)
+                                              self.tree.num_final_states, self.rnn)
         return DeviceDecode(best_score, best_bp, recs, c, end_cost, self.cfg.word_end_limit,
                             n_frames, self.tree.num_final_states)
 

@@ -11,6 +11,13 @@ the frontier without touching the live beam: utterances whose declared
 end was not reached yet take the live beam, and the finalize reads the
 carry and joins the records.
 
+Under RNN-LM fusion each feed first compacts the hidden-state pools to
+the <= 2K rows that the live beam and the frozen finals reach, then sizes
+them to 2K + R x Tb rows for the block's writes (``rnn_base`` = 2K; the
+reference's ``_compact_rnn_carry``), so memory per stream stays fixed
+whatever its length; the finalize scores ``</s>`` from the live rows of
+the utterances it takes at the frontier.
+
 The reference pads its record buffers to 256-frame buckets to bound the
 finalize's XLA compiles; eager PyTorch compiles nothing per shape, so
 the port neither pads nor prewarms.
@@ -22,7 +29,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from .decoder import DecodeResult, DeviceDecode, TreeDecoder, _decode_block, init_carry
+from .decoder import (
+    DecodeResult, DeviceDecode, TreeDecoder, _compact_rnn_carry, _decode_block, init_carry,
+)
 
 #: "length not declared": the utterance's frames stay active
 _NO_END = 2**30
@@ -53,7 +62,7 @@ class StreamingDecoder:
         """Begin a new batch of segments, of ``n_frames`` frames each when
         declared (ref: SearchAlgorithm::restart)."""
         dev = self.dec.device
-        self._carry = init_carry(batch_size, self.dec.cfg, self.dec.lm, dev)
+        self._carry = init_carry(batch_size, self.dec.cfg, self.dec.lm, dev, self.dec.rnn, 0)
         self._recs = []
         self._t = 0
         self._n_frames = (
@@ -75,8 +84,13 @@ class StreamingDecoder:
         if emissions.dim() != 3 or emissions.shape[0] != self._n_frames.shape[0]:
             raise ValueError(f"a block of shape {tuple(emissions.shape)} for a batch of "
                              f"{self._n_frames.shape[0]}")
+        rnn_base = 0
+        if self.dec.rnn is not None:
+            cfg = self.dec.cfg
+            rnn_base = 2 * cfg.max_hyps
+            self._carry = _compact_rnn_carry(self._carry, cfg.word_end_limit * emissions.shape[1])
         self._carry, recs = _decode_block(self._step, self._carry, emissions, self._t,
-                                          self._n_frames)
+                                          self._n_frames, rnn_base)
         self._recs.append(recs)
         self._t += emissions.shape[1]
         return self

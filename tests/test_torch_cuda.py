@@ -44,6 +44,8 @@ from rasr_tpu_torch.models.nn import (  # noqa: E402
     BlstmEncoderNet, ConformerEncoderNet, init_params,
 )
 from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder  # noqa: E402
+from rasr_tpu_torch.models.lm.rnn import RnnLm  # noqa: E402
+from rasr_tpu_torch.search.rnn_fusion import build_rnn_fusion  # noqa: E402
 from rasr_tpu_torch.search.streaming import StreamingDecoder  # noqa: E402
 from rasr_tpu_torch.synthetic import PATHS, build_setup  # noqa: E402
 from rasr_tpu_torch.align.aligner import BatchAligner  # noqa: E402
@@ -423,6 +425,61 @@ def test_lfmmi_gradients_on_card_equal_cpu(card):
     for got, want in zip(out[str(card)], out["cpu"]):
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max())
+
+
+def _rnn_text(s, seed, n=80):
+    rng = np.random.default_rng(seed)
+    words = [l.primary_orth for l in s.lexicon.lemmata if not l.special]
+    return [list(rng.choice(words, size=6)) for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_fused_decode_on_card_equals_cpu(card):
+    """RNN-LM fusion under the scaled-down production beam: the same RNN
+    LM's tables on the card and on the CPU decode the card's emissions to
+    the same words, scores within 1e-5, and the same record columns."""
+    beam = BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=4, branch_hyps=16,
+                      root_arc_limit=12, root_select=48, deferred_emission=True, lm_scale=10.0)
+    s = build_setup(num_words=80, num_phones=12, num_classes=150, densities=4, beam=beam,
+                    device=card)
+    rnn = RnnLm.train_from_text(_rnn_text(s, 2), embed_dim=16, hidden_dim=16, epochs=3,
+                                device="cpu")
+    fusion = build_rnn_fusion(rnn, s.lm.vocab, weight=0.5, device="cpu")
+    on_card = TreeDecoder(s.tree, compile_ngram(s.lm), s.beam, rnn_fusion=fusion, device=card)
+    on_cpu = TreeDecoder(s.tree, compile_ngram(s.lm), s.beam, rnn_fusion=fusion, device="cpu")
+    x = torch.from_numpy((np.random.default_rng(8).normal(size=(3, 12000)) * 0.1)
+                         .astype(np.float32)).to(card)
+    feats, n = s.frontend(x, torch.tensor([12000, 9000, 5000], device=card))
+    e = s.scorer(feats)
+    ha, hb = on_card.decode_scores_device(e, n), on_cpu.decode_scores_device(e.cpu(), n.cpu())
+    a, b = on_card.results_from_device(ha), on_cpu.results_from_device(hb)
+    assert [r.words for r in a] == [r.words for r in b] and any(r.words for r in a)
+    np.testing.assert_allclose([r.score for r in a], [r.score for r in b], rtol=1e-5)
+    for col in ("lemma", "prev", "word", "lm"):
+        assert torch.equal(getattr(ha.records, col).cpu(), getattr(hb.records, col))
+    torch.testing.assert_close(ha.records.lmcost.cpu(), hb.records.lmcost, rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rnn_lm_train_step_on_card_equals_cpu(card):
+    """Adam steps of the RNN LM from one initial draw: the loss of every
+    epoch (each a function of all earlier updates) on the card equals the
+    CPU's within 1e-5 (float32 without TF32), and so do 99% of the
+    parameters within 1e-4; the rest differ by at most Adam's step per
+    epoch (its first steps move a parameter by ~lr x sign(g), and the sign
+    of a near-zero gradient depends on the order of the float32 sums)."""
+    s = build_setup(num_words=80, num_phones=12, num_classes=150, densities=4, device="cpu")
+    text = _rnn_text(s, 3, n=200)
+    lr, epochs = 1e-3, 5
+    kw = dict(embed_dim=32, hidden_dim=64, epochs=epochs, seed=1, learning_rate=lr)
+    a = RnnLm.train_from_text(text, device=card, **kw)
+    b = RnnLm.train_from_text(text, device="cpu", **kw)
+    np.testing.assert_allclose(a.train_losses, b.train_losses, rtol=1e-5)
+    for (name, p), q in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        err = (p.cpu() - q).abs()
+        assert float((err <= 1e-4 + 1e-4 * q.abs()).float().mean()) >= 0.99, name
+        assert float(err.max()) <= 2 * lr * epochs, name
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

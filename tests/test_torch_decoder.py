@@ -156,20 +156,20 @@ BINDING = {
 
 
 def _assert_port_equals_jax(jtree, ttree, lm, num_classes, kw, seed, bla=(None, None),
-                            n=(14, 11, 9)):
+                            n=(14, 11, 9), rnn=(None, None)):
     """Decode the same tie-free random emissions (14 frames) with the JAX
-    decoder and the port under ``kw`` (and the lookahead pair ``bla``,
-    JAX's and the port's) and the declared lengths ``n``: same words, word
-    ends, record chains and scores, the same R records in every frame and
-    the same final beams."""
+    decoder and the port under ``kw`` (and the lookahead pair ``bla`` and
+    the RNN-fusion pair ``rnn``, JAX's and the port's) and the declared
+    lengths ``n``: same words, word ends, record chains and scores, the
+    same R records in every frame and the same final beams."""
     rng = np.random.default_rng(seed)
     emis = rng.uniform(0.0, 6.0, size=(3, 14, num_classes)).astype(np.float32)
     n = np.array(n)
     jax_decoder = jdec.TreeDecoder(jtree, jax_compile_ngram(lm), jdec.BeamConfig(**kw),
-                                   bigram_la=bla[0])
+                                   bigram_la=bla[0], rnn_fusion=rnn[0])
     want = jax_decoder.decode_scores(emis, n)
     decoder = TreeDecoder(ttree, compile_ngram(lm), BeamConfig(**kw), bigram_la=bla[1],
-                          device="cpu")
+                          rnn_fusion=rnn[1], device="cpu")
     handle = decoder.decode_scores_device(emis, n)
     got = decoder.results_from_device(handle)
     for a, b in zip(got, want):
@@ -185,7 +185,10 @@ def _assert_port_equals_jax(jtree, ttree, lm, num_classes, kw, seed, bla=(None, 
     np.testing.assert_array_equal(recs.word.numpy(), word)
     np.testing.assert_array_equal(recs.lm.numpy(), lm_state)
     np.testing.assert_allclose(recs.score.numpy(), score, rtol=1e-4)
-    np.testing.assert_array_equal(recs.lmcost.numpy(), lmcost)
+    if rnn[1] is None:
+        np.testing.assert_array_equal(recs.lmcost.numpy(), lmcost)
+    else:  # the fused RNN cost is float32 products
+        np.testing.assert_allclose(recs.lmcost.numpy(), lmcost, rtol=1e-4, atol=1e-4)
     # and each utterance's whole final beam, with its </s> costs
     fstate, flm, fscore, fbp, end_cost = jax_decoder._last_finals
     fin = handle.finals
@@ -746,9 +749,9 @@ def test_unported_beam_options_raise(slice_c_systems, option):
 
 def test_unported_decoder_features_raise(slice_c_systems, oracle_setup):
     """A bigram lookahead decodes and equals the JAX decoder (also from the
-    JAX decoder's own tables, carried across); RNN fusion, lookaheads of
-    general WFST networks (junction re-entry) and beam partitioning are
-    not ported and raise."""
+    JAX decoder's own tables, carried across); lookaheads of general WFST
+    networks (junction re-entry) and beam partitioning are not ported and
+    raise (RNN fusion is ported: tests/test_torch_rnn_fusion.py)."""
     lm, (jtree, ttree), las = slice_c_systems["within"]
     _assert_port_equals_jax(jtree, ttree, lm, 20011, _RSEL, 301, las["word-set"])
     jtables = jdec.bigram_to_device(las["word-set"][0], jtree)
@@ -761,8 +764,6 @@ def test_unported_decoder_features_raise(slice_c_systems, oracle_setup):
     assert general.reentry
     with pytest.raises(NotImplementedError):
         TreeDecoder(junction, compile_ngram(lm), bigram_la=general, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TreeDecoder(tree, compile_ngram(lm), rnn_fusion=object(), device="cpu")
     dec = TreeDecoder(tree, compile_ngram(lm), device="cpu")
     with pytest.raises(NotImplementedError):
         dec.decode_scores(np.zeros((1, 2, 3), np.float32), [2], beam_axis="model")

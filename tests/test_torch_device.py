@@ -15,6 +15,7 @@ from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors
 from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
 from rasr_tpu_torch.models.lm.arpa import NgramLm
 from rasr_tpu_torch.models.lm.ngram import compile_ngram
+from rasr_tpu_torch.models.lm.rnn import LstmLm, RnnLm
 from rasr_tpu_torch.models.nn import (
     BlstmEncoderNet, ConformerBlock, ConformerEncoderNet, ConvFrontendNet, FeedForwardNet,
     NnHybridScorer, StatePriors,
@@ -22,6 +23,9 @@ from rasr_tpu_torch.models.nn import (
 from rasr_tpu_torch.models.scorer import GmmFeatureScorer, PrecomputedScorer
 from rasr_tpu_torch.models.tying import MonophoneStateTying
 from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig, make_params
+from rasr_tpu_torch.pipeline.battery import build_battery_task
+from rasr_tpu_torch.search.decoder import BeamConfig
+from rasr_tpu_torch.search.rnn_fusion import build_rnn_fusion
 from rasr_tpu_torch.search.decoder import TreeDecoder, tree_to_device
 from rasr_tpu_torch.search.streaming import StreamingDecoder
 from rasr_tpu_torch.search.tree import build_prefix_tree
@@ -61,6 +65,29 @@ def _streaming(**kw):
     return [*sd._carry, sd._n_frames]
 
 
+def _rnn_lm(**kw):
+    return RnnLm(LstmLm(4, 3, 2), {"<s>": 0, "</s>": 1, "AB": 2, "BA": 3}, **kw)
+
+
+def _fused_decoder(**kw):
+    tree, lm = _tree_and_lm()
+    fusion = build_rnn_fusion(_rnn_lm(device="cpu"), {"<s>": 0, "</s>": 1, "AB": 2},
+                              device="cpu")
+    return TreeDecoder(tree, lm, rnn_fusion=fusion, **kw).rnn
+
+
+_BATTERY = []
+
+
+def _battery_decoder(**kw):
+    """A tiny battery task (built on the CPU once) and its decoder."""
+    if not _BATTERY:
+        _BATTERY.append(build_battery_task(num_words=20, num_phones=6, num_utts=1,
+                                           n_train_sentences=30, lookahead_classes=4,
+                                           device="cpu"))
+    return _BATTERY[0].decoder(BeamConfig(max_hyps=8, word_end_limit=4), **kw).tables
+
+
 SMALL_CONFORMER = dict(d_model=8, num_blocks=1, num_heads=2, ff_mult=2, conv_kernel=3)
 
 
@@ -89,6 +116,13 @@ ENTRY_POINTS = {
     "ConformerBlock": lambda **kw: ConformerBlock(8, num_heads=2, conv_kernel=3, **kw),
     "ConformerEncoderNet": lambda **kw: ConformerEncoderNet(3, 4, **SMALL_CONFORMER, **kw),
     "StreamingDecoder": _streaming,
+    "RnnLm": lambda **kw: _rnn_lm(**kw).model,
+    "RnnLm.train_from_text": lambda **kw: RnnLm.train_from_text(
+        [["AB", "BA"]], embed_dim=3, hidden_dim=2, epochs=1, **kw).model,
+    "build_rnn_fusion": lambda **kw: build_rnn_fusion(
+        _rnn_lm(device="cpu"), {"<s>": 0, "</s>": 1, "AB": 2}, **kw),
+    "TreeDecoder-rnn_fusion": _fused_decoder,
+    "BatteryTask.decoder": _battery_decoder,
 }
 
 

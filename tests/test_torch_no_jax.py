@@ -6,12 +6,15 @@ on the CPU, on the within-word tree, on the across-word network with 4
 context groups, bigram lookahead and compact branch slots, and behind a
 small conformer hybrid scorer; each decode is also streamed in blocks. A
 second subprocess runs the offline recognizer over a synthesized corpus
-with a lattice archive and a CTM file, and the benchmark entry point at a
-tiny size. A third drives the training side: forced alignment (Viterbi
+with a lattice archive, a CTM file and an n-best file, and the benchmark
+entry point at a tiny size. A third drives the training side: forced alignment (Viterbi
 and Baum-Welch), an EM step, LDA, fMLLR and MLLR, frame and sequence CE
 training with a checkpoint, LF-MMI and sMBR steps, lattice rescoring, the
 recognizer with speaker transforms and the ``BENCH_TRAIN=1`` entry at a
-tiny width. The port carries its own copies of the host modules, so it
+tiny width. A fourth runs the neural LM and the second pass: RNN-LM
+training, a fused decode offline and streamed, n-best lists, confusion
+networks and RNN rescoring of its lattice, an MMI accumulation and the
+battery. The port carries its own copies of the host modules, so it
 loads no module of ``rasr_tpu``.
 """
 
@@ -90,9 +93,11 @@ for i in range(3):
                f'<orth>{orth}</orth></segment></recording>')
 (open(f"{tmp}/c.corpus", "w")).write("".join(xml) + "</corpus>")
 rec = OfflineRecognizer(s.frontend, s.scorer, s.decoder, lattice_archive=f"{tmp}/lat",
-                        ctm_file=f"{tmp}/ctm")
+                        ctm_file=f"{tmp}/ctm", nbest_file=f"{tmp}/nbest", nbest=3)
 results = rec.run(CorpusVisitor(CorpusDescription.load(f"{tmp}/c.corpus"), batch_size=2))
 assert len(results) == 3 and rec.evaluator.report()["ref_len"] == 6
+top = {l.split(" ")[0]: l.split()[3:] for l in open(f"{tmp}/nbest") if l.split(" ")[1] == "0"}
+assert top == {r.segment_name: r.words for r in results}, top
 with FileArchive(f"{tmp}/lat", "r") as ar:
     assert sorted(ar.keys()) == sorted(r.segment_name for r in results)
     assert all(Lattice.unpack(ar.read(k)).num_nodes >= 1 for k in ar.keys())
@@ -184,6 +189,75 @@ print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu
 def test_training_side_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = [l for l in proc.stdout.splitlines() if l.startswith("LOADED")]
+    assert line.split()[1:] == [], line
+
+
+RNN_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["rasr_tpu"] = None
+import numpy as np, torch
+from rasr_tpu_torch.align.aligner import BatchAligner
+from rasr_tpu_torch.lattice import flf
+from rasr_tpu_torch.lattice.lattice import decoder_lattice
+from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
+from rasr_tpu_torch.models.lm.ngram import compile_ngram
+from rasr_tpu_torch.models.lm.rnn import RnnLm
+from rasr_tpu_torch.pipeline.battery import build_battery_task, run_operating_point
+from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
+from rasr_tpu_torch.search.rnn_fusion import build_rnn_fusion
+from rasr_tpu_torch.search.streaming import StreamingDecoder
+from rasr_tpu_torch.synthetic import build_setup
+from rasr_tpu_torch.train import discriminative
+beam = BeamConfig(max_hyps=32, word_end_limit=8, root_hyps=4, branch_hyps=8, lm_scale=10.0)
+s = build_setup(num_words=30, num_phones=8, num_classes=50, densities=2, beam=beam, device="cpu")
+rng = np.random.default_rng(0)
+words = [l.primary_orth for l in s.lexicon.lemmata if not l.special]
+rnn = RnnLm.train_from_text([list(rng.choice(words[:-3], size=5)) for _ in range(50)],
+                            embed_dim=8, hidden_dim=8, epochs=3, device="cpu")
+assert rnn.train_losses[-1] < rnn.train_losses[0]
+fusion = build_rnn_fusion(rnn, s.lm.vocab, weight=0.5, device="cpu")
+dec = TreeDecoder(s.tree, compile_ngram(s.lm), s.beam, rnn_fusion=fusion, device="cpu",
+                  tables=s.decoder.tables)
+x = torch.from_numpy((rng.normal(size=(2, 8000)) * 0.1).astype(np.float32))
+feats, n = s.frontend(x, torch.tensor([8000, 6000]))
+e = s.scorer(feats)
+handle = dec.decode_scores_device(e, n)
+res = dec.results_from_device(handle)
+assert all(np.isfinite(r.score) and r.words for r in res), res
+sd = StreamingDecoder(dec).restart(2, n)
+for lo in range(0, e.shape[1], 16):
+    sd.feed(e[:, lo:lo + 16])
+    assert sd._carry.cs.shape[1] == 2 * 32 + 8 * min(16, e.shape[1] - lo)
+assert [r.words for r in sd.finalize()] == [r.words for r in res]
+lat = decoder_lattice(handle, dec.tree.lemmas, 0)
+assert flf.n_best(lat, 3) and flf.confusion_network(lat)
+synt = {i: rnn.vocab.get(o) for i, o in enumerate(lat.lemma_orths)}
+assert flf.best_path(flf.rescore_lm(lat, rnn, synt))[1]
+topo = HmmTopology(states_per_phone=3, silence_states=1)
+acc = discriminative.MmiAccumulators.zeros(*s.mixtures.means.shape)
+discriminative.accumulate_denominator_from_lattice(
+    acc, s.mixtures, feats[0, : int(n[0])].numpy(), lat, BatchAligner(s.scorer), s.lexicon,
+    s.tying, topo, TransitionModel())
+assert discriminative.ebw_update(s.mixtures, acc).means.shape == s.mixtures.means.shape
+task = build_battery_task(num_words=20, num_phones=6, num_utts=2, n_train_sentences=40,
+                          lookahead_classes=4, device="cpu")
+assert 0.0 <= run_operating_point(task, BeamConfig(max_hyps=16, word_end_limit=4),
+                                  device="cpu")["wer"]
+print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu."))))
+"""
+
+
+def test_rnn_fusion_and_second_pass_run_without_jax():
+    """The neural LM and the second pass with no JAX: RNN-LM training, a
+    fused decode (offline and streamed, the pool at 2K + R x Tb rows),
+    n-best lists, confusion networks and RNN rescoring of its lattice, an
+    MMI denominator accumulation with an EBW update, and the battery."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", RNN_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     (line,) = [l for l in proc.stdout.splitlines() if l.startswith("LOADED")]

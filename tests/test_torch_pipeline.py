@@ -267,9 +267,39 @@ def test_archives_interoperate(tmp_path, writer):
 
 
 def test_unported_recognizer_branches_raise(toy):
-    for kw in (dict(mesh=object()), dict(nbest_file=str(toy["tmp"] / "nbest.txt"))):
+    """The sharded decode is not ported and raises (n-best lists are
+    ported: test_recognizer_nbest_matches_jax)."""
+    for kw in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             _recognizer(toy, **kw)
+
+
+def _nbest_lines(path):
+    """(segment, rank, score, words) of each line of an n-best file."""
+    out = []
+    for line in path.read_text().splitlines():
+        seg, rank, score, *words = line.split(" ")
+        out.append((seg, int(rank), float(score), " ".join(words)))
+    return out
+
+
+def test_recognizer_nbest_matches_jax(toy):
+    """The n-best file (``flf.n_best`` of each decode lattice) == the JAX
+    recognizer's on the toy corpus: the same segments, ranks and words,
+    scores within 1e-4 relative as the decodes' (costs of 1e3 carry the
+    frontend's float32 sums beyond the printed 4th decimal); rank 0 is the
+    best path's words."""
+    paths = {k: toy["tmp"] / f"{k}.nbest" for k in ("jax", "port")}
+    _jax_recognizer(toy, nbest_file=str(paths["jax"]), nbest=4).run(
+        JaxVisitor(JaxCorpus.load(toy["path"]), batch_size=2))
+    results = _recognizer(toy, nbest_file=str(paths["port"]), nbest=4).run(
+        CorpusVisitor(CorpusDescription.load(toy["path"]), batch_size=2))
+    got, want = _nbest_lines(paths["port"]), _nbest_lines(paths["jax"])
+    assert [(s, r, w) for s, r, _, w in got] == [(s, r, w) for s, r, _, w in want]
+    np.testing.assert_allclose([x[2] for x in got], [x[2] for x in want], rtol=1e-4)
+    assert any(r > 0 for _, r, _, _ in got)
+    best = {res.segment_name: " ".join(res.words) for res in results}
+    assert {s: w for s, r, _, w in got if r == 0} == best
 
 
 def _transforms(seed=11):
