@@ -71,7 +71,23 @@ counters set to 0 just before it and read just after:
   corpus with lattices and 10-best lists (rank 0 == the best path); 4 of
   its lattices rescored with the RNN LM and decoded as confusion networks;
   one MMI EBW update of the main path's GMMs from them (the card's
-  accumulators against the CPU's).
+  accumulators against the CPU's);
+- the frontend-ext path: the bench batch through ``FeatureFrontend`` with
+  the energy column (out of the MFCC kernel's own launch), sliding CMVN
+  over 300 frames, deltas of order 2 and VTLN at 0.92 (51 dimensions),
+  scored by the bench GMMs drawn at 51 dimensions and decoded under the
+  production beam; the MFCC kernel against its plain version on those
+  operands; card == CPU features and decode on B=2 x 3 s; the gammatone
+  frontend on the batch, timed beside its bound, card == CPU on B=2 x 3 s;
+  the VTLN grid search over the seven default factors on 8 utterances
+  with the align-em path's EM model, card == CPU;
+- the wfst path: a command grammar over 200 words of the lexicon (500
+  sentences through ``FsaGrammarLm``, determinized and minimized, each
+  word arc expanded into its HMM state chain) compiled by
+  ``compile_wfst``, its re-entry bigram lookahead, the bench batch through
+  MFCC -> GMM -> the decoder under the production beam; card == CPU on
+  B=2 x 3 s, and one card lattice as an FSA whose best path is the
+  decoder's.
 
 A small batch decoded on the card and on the CPU must agree on every
 path, and so must the lattices of a 4 x 3 s batch. Prints per-stage
@@ -147,6 +163,26 @@ RNN_SENTENCES, RNN_SENTENCE_WORDS, RNN_STREAM_BLOCK = 2000, 12, 128
 RNN_NBEST, RNN_LATTICES = 10, 4
 # decode frames profiled per path (launches and device time per frame)
 PROFILE_FRAMES = 50
+# the frontend-ext path: MFCC with energy, sliding CMVN (300 frames),
+# deltas of order 2 and VTLN at VTLN_ALPHA: 17 x 3 = 51 dimensions, scored
+# by the bench GMMs drawn at 51 dimensions. Its features on the card
+# against the CPU: the sliding variance E[x^2] - mean^2 cancels ~5 digits
+# where a window's log energy barely varies, so the cepstra's float32
+# differences (the kernel's 3xTF32 DFT against the CPU's sums) grow by up
+# to ~1e3 there (tests/test_torch_frontend.py: 0.031 between the two
+# packages on the CPU); the gammatone features within 1e-4 relative
+# (float32 convolutions without TF32, summed in another order); VTLN
+# estimated over the seven default factors on VTLN_BATCH utterances, each
+# factor's total alignment cost within ALIGN_RTOL of the CPU's
+VTLN_ALPHA, VTLN_BATCH = 0.92, 8
+FEAT_EXT_RTOL, FEAT_EXT_ATOL = 2e-4, 5e-2
+GT_RTOL, GT_ATOL = 1e-4, 1e-5
+# the wfst path: a command grammar of WFST_SENTENCES sentences of 2-5
+# words drawn from WFST_WORDS words of the main path's lexicon, made
+# deterministic and minimal, each word arc expanded into the word's HMM
+# state chain; its re-entry lookahead with WFST_LA_CLASSES history classes
+WFST_WORDS, WFST_SENTENCES, WFST_LA_CLASSES = 200, 500, 64
+WFST_STOP_COST = 5.0  # stopping a command before its sentence ends
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -396,7 +432,7 @@ def align_em_phase(s, dev, samples, lengths, rng, say, reset_counts, read_counts
     fb = profile_loop(lambda: forward_backward(emis, *g[1:], nf), T)
     say(f"align-em Viterbi loop (forward + backtrace, B={B} x {T} frames): {describe(vit)}")
     say(f"align-em forward-backward loop: {describe(fb)}")
-    return counts
+    return counts, out["model"], graphs
 
 
 def train_ce_phase(dev, rng, say, reset_counts, counted):
@@ -951,6 +987,320 @@ def rnn_fusion_phase(s, dev, samples, lengths, corpus, batch, feats, n_frames, m
     return counts
 
 
+def frontend_ext_phase(s, dev, samples, lengths, em_model, graphs, say, reset_counts,
+                       read_counts):
+    """The other front ends at the bench batch's width: MFCC with energy,
+    sliding CMVN, deltas and VTLN (51 dimensions) through the MFCC kernel,
+    scored by the bench GMMs drawn at 51 dimensions and decoded under the
+    production beam; the gammatone frontend; the VTLN grid search over the
+    align-em path's EM model. Each against the CPU. Returns the MFCC
+    kernel's largest error on the path's operands and the launch counts."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.align.aligner import BatchAligner
+    from rasr_tpu_torch.device import cuda_ms
+    from rasr_tpu_torch.models.lm.ngram import compile_ngram
+    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+    from rasr_tpu_torch.ops.frontend import (
+        FeatureFrontend, FrontendConfig, frame_signal, num_frames, preemphasize,
+    )
+    from rasr_tpu_torch.ops.gammatone import (
+        GammatoneConfig, GammatoneFrontend, piecewise_linear_warp,
+    )
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames, mfcc_frames_plain
+    from rasr_tpu_torch.search.decoder import TreeDecoder
+    from rasr_tpu_torch.synthetic import build_setup
+    from rasr_tpu_torch.train.vtln import estimate_warping_factor
+
+    B, S = samples.shape
+    cfg = FrontendConfig(append_energy=True, normalize="sliding", norm_window=300)
+    kw = dict(delta_order=2, vtln_warp=piecewise_linear_warp(cfg.num_bins, VTLN_ALPHA))
+    t0 = time.time()
+    s51 = build_setup(feat_dim=51, device=dev)
+    fe = FeatureFrontend(cfg, device=dev, **kw)
+    if fe.output_dim != 51 or s51.scorer.tensors.dim != 51:
+        raise AssertionError(f"frontend-ext: {fe.output_dim} dims for a "
+                             f"{s51.scorer.tensors.dim}-dim GMM")
+    say(f"frontend-ext setup {time.time() - t0:.1f} s (the bench GMMs at 51 dims, the same "
+        f"network); mel operand {tuple(fe.kmel.shape)} (the energy band after the VTLN "
+        f"fold), DCT {tuple(fe.kdct.shape)}")
+
+    # the kernel on the path's operands, against its plain version
+    T = num_frames(S, cfg)
+    frames = frame_signal(preemphasize(samples, cfg.preemphasis), T, cfg)
+    args = (frames, fe.cosw, fe.sinw, fe.kmel, fe.kdct, cfg.log_floor)
+    before = mfcc_frames.launches
+    got = mfcc_frames(*args, fe.basis)
+    torch.cuda.synchronize()
+    if mfcc_frames.launches <= before:
+        raise AssertionError("mfcc_frames did not launch its kernel")
+    err = check_close(f"mfcc with energy under VTLN {VTLN_ALPHA}", got,
+                      mfcc_frames_plain(*args), MFCC_RTOL, MFCC_ATOL)
+    ms = cuda_ms(lambda: mfcc_frames(*args, fe.basis), 10)
+    plain_ms = cuda_ms(lambda: mfcc_frames_plain(*args), 10)
+    say(f"mfcc_frames with the energy column (21 bands, 17 outputs) N={B * T}: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, max abs err {err:.3e} (energy column "
+        f"{float((got[..., 16] - mfcc_frames_plain(*args)[..., 16]).abs().max()):.3e})")
+    del got, frames
+
+    def run(x, n):
+        t_a = time.time()
+        f, nf = fe(x, n)
+        torch.cuda.synchronize()
+        t_b = time.time()
+        e = s51.scorer(f)
+        torch.cuda.synchronize()
+        t_c = time.time()
+        res = s51.decoder.results_from_device(s51.decoder.decode_scores_device(e, nf))
+        return f, e, nf, res, np.array([t_b - t_a, t_c - t_b, time.time() - t_c])
+
+    run(samples[:, :16000], torch.full_like(lengths, 16000))  # warm-up on 1 s
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    f, e, nf, results, dt = run(samples, lengths)
+    counts = read_counts("frontend-ext path", gmm_scores, mfcc_frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tuple(f.shape) != (B, T, 51) or not bool(torch.isfinite(f).all()):
+        raise AssertionError(f"frontend-ext features: shape {tuple(f.shape)} or non-finite")
+    if tuple(e.shape) != (B, T, s51.scorer.num_classes) or not bool(torch.isfinite(e).all()):
+        raise AssertionError(f"frontend-ext emissions: shape {tuple(e.shape)} or non-finite")
+    if not all(np.isfinite(r.score) and r.words for r in results):
+        raise AssertionError("frontend-ext decode produced an empty or non-finite result")
+    say(f"frontend-ext path B={B} x {AUDIO_S:g} s ({T} frames, 51 dims): frontend "
+        f"{dt[0] * 1e3:.1f} ms, scorer {dt[1] * 1e3:.1f} ms, decode {dt[2] * 1e3:.1f} ms; "
+        f"{B * AUDIO_S / dt.sum():.1f} audio-s/s; launches {counts}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    say(f"frontend-ext sample: {results[0].orth[:80]!r} score {results[0].score:.3f}")
+    del f, e, results
+
+    # card == CPU: features and the decode of B=2 x 3 s
+    small = int(3.0 * 16000)
+    x2, n2 = samples[:2, :small], torch.full((2,), small, device=dev)
+    f2, nf2 = fe(x2, n2)
+    f2c, _ = FeatureFrontend(cfg, device="cpu", **kw)(x2.cpu(), n2.cpu())
+    feat_err = check_close("frontend-ext features cuda vs cpu", f2.cpu(), f2c, FEAT_EXT_RTOL,
+                           FEAT_EXT_ATOL)
+    e2 = s51.scorer(f2)
+    on_cpu = TreeDecoder(s51.tree, compile_ngram(s51.lm), s51.beam, device="cpu")
+    a, b = s51.decoder.decode_scores(e2, nf2), on_cpu.decode_scores(e2.cpu(), nf2.cpu())
+    for x, y in zip(a, b):
+        if x.words != y.words or abs(x.score - y.score) > DECODE_RTOL * max(1.0, abs(y.score)):
+            raise AssertionError(f"cuda vs cpu decode (frontend-ext): {x.words} {x.score} vs "
+                                 f"{y.words} {y.score}")
+    say(f"frontend-ext card vs cpu on B=2 x 3 s: features max abs err {feat_err:.3e} "
+        f"(tolerance {FEAT_EXT_ATOL} + {FEAT_EXT_RTOL} x value), decode equal: "
+        f"{[r.orth[:40] for r in a]}")
+
+    # the gammatone frontend on the bench batch (no kernel: cuDNN
+    # convolutions in float32); its device time beside its bound
+    gcfg = GammatoneConfig()
+    gt = GammatoneFrontend(gcfg, device=dev)
+    gt(samples[:, :16000], torch.full_like(lengths, 16000))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    g, gn = gt(samples, lengths)
+    torch.cuda.synchronize()
+    gt_host_ms = (time.perf_counter() - t0) * 1e3
+    gt_counts = {fn.__name__: fn.launches for fn in (gmm_scores, mfcc_frames)}
+    gt_peak = torch.cuda.max_memory_allocated(dev)
+    Tg = gt.num_frames(S)
+    if tuple(g.shape) != (B, Tg, gcfg.num_channels) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"gammatone features: shape {tuple(g.shape)} or non-finite")
+    gt_ms = cuda_ms(lambda: gt(samples, lengths), 3)
+    C_, Lk = gt.kernels.shape
+    Lw = gcfg.integration_length
+    gt_flop = 2.0 * B * C_ * S * Lk + 2.0 * B * C_ * Tg * Lw + B * C_ * S
+    gt_bound = bound(gt_flop, 4.0 * (B * S + B * Tg * C_))
+    g2, _ = gt(x2, n2)
+    g2c, _ = GammatoneFrontend(gcfg, device="cpu")(x2.cpu(), n2.cpu())
+    gt_err = check_close("gammatone cuda vs cpu", g2.cpu(), g2c, GT_RTOL, GT_ATOL)
+    say(f"gammatone B={B} x {AUDIO_S:g} s ({Tg} frames x {C_} channels, {Lk}-tap filters, "
+        f"{Lw}-sample integration): {gt_host_ms:.1f} ms host clock, {gt_ms:.3f} ms (CUDA "
+        f"events, 3 calls), bound {gt_bound[0]:.3f} ms ({gt_bound[1]}, fp32 pipes); peak "
+        f"device memory {gt_peak / 2**30:.2f} GiB; launches {gt_counts}; card vs cpu on "
+        f"B=2 x 3 s max abs err {gt_err:.3e} (tolerance {GT_ATOL} + {GT_RTOL} x value)")
+    del g, g2
+
+    # VTLN: the seven default factors on VTLN_BATCH utterances, aligned with
+    # the align-em path's EM model against its graphs
+    x8, n8 = samples[:VTLN_BATCH], lengths[:VTLN_BATCH]
+    fkw = dict(splice_context=4, lda=s.lda)
+    reset_counts()
+    t0 = time.time()
+    best, costs = estimate_warping_factor(
+        x8, n8, graphs[:VTLN_BATCH], BatchAligner(GmmFeatureScorer(em_model, device=dev)),
+        FrontendConfig(), frontend_kwargs=fkw, device=dev)
+    vtln_s = time.time() - t0
+    vtln_counts = read_counts("vtln estimate", gmm_scores, mfcc_frames)
+    t0 = time.time()
+    best_c, costs_c = estimate_warping_factor(
+        x8.cpu(), n8.cpu(), graphs[:VTLN_BATCH],
+        BatchAligner(GmmFeatureScorer(em_model, device="cpu")), FrontendConfig(),
+        frontend_kwargs=fkw, device="cpu")
+    vtln_cpu_s = time.time() - t0
+    rel = max(abs(costs[a] - costs_c[a]) / abs(costs_c[a]) for a in costs_c)
+    if best != best_c or list(costs) != list(costs_c) or rel > ALIGN_RTOL:
+        raise AssertionError(f"vtln card vs cpu: {best} {costs} vs {best_c} {costs_c}")
+    say(f"vtln estimate over {len(costs)} factors on {VTLN_BATCH} x {AUDIO_S:g} s: card "
+        f"{vtln_s:.1f} s, cpu {vtln_cpu_s:.1f} s; best alpha {best} on both; costs "
+        + ", ".join(f"{a:g}: {c:.1f}" for a, c in costs.items())
+        + f"; card vs cpu within {rel:.2e} relative (tolerance {ALIGN_RTOL}); launches "
+        f"{vtln_counts}")
+    return err, counts
+
+
+def grammar_network(s, rng):
+    """A command grammar over words of the main path's lexicon as a WFST
+    network: ``FsaGrammarLm.from_sequences`` over WFST_SENTENCES sentences,
+    made deterministic and minimal, each word arc expanded into the word's
+    HMM state chain (its emission classes, the grammar weight and forward
+    cost on the first arc, the word label on the last), every node after
+    the first word final, compiled by ``compile_wfst`` with the main
+    path's LM scoring the words."""
+    from rasr_tpu_torch.align.graph import build_linear_graph
+    from rasr_tpu_torch.fsa.algorithms import determinize, minimize, remove_epsilon
+    from rasr_tpu_torch.fsa.automaton import Automaton
+    from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
+    from rasr_tpu_torch.models.lm.grammar import FsaGrammarLm
+    from rasr_tpu_torch.search.wfst import compile_wfst
+
+    times = {}
+    t0 = time.time()
+    lemmas = [lemma for lemma in s.lexicon.lemmata if not lemma.special]
+    vocab = [lemmas[i] for i in rng.choice(len(lemmas), size=WFST_WORDS, replace=False)]
+    sentences = [[vocab[i].primary_orth for i in rng.integers(0, WFST_WORDS,
+                                                               size=int(rng.integers(2, 6)))]
+                 for _ in range(WFST_SENTENCES)]
+    grammar = FsaGrammarLm.from_sequences(sentences)
+    det = minimize(determinize(remove_epsilon(grammar.fsa)))
+    times["grammar"] = time.time() - t0
+    t0 = time.time()
+    topo, tdp = HmmTopology(states_per_phone=3, silence_states=1), TransitionModel().speech
+    index = {lemma.primary_orth: i for i, lemma in enumerate(vocab)}
+    orth_of = {v: k for k, v in grammar.vocab.items()}
+    chains = {}
+    net = Automaton()
+    for _ in range(det.num_states):
+        net.add_state()
+    net.initial = det.initial
+    # a command may stop after any word (at WFST_STOP_COST where the
+    # grammar's sentence goes on), so that a path can complete at the last
+    # frame whatever the commands' lengths
+    for st in range(det.num_states):
+        if st != det.initial:
+            net.set_final(st, det.finals.get(st, WFST_STOP_COST))
+    for st in range(det.num_states):
+        for arc in det.arcs[st]:
+            w = index[orth_of[arc.ilabel]]
+            if w not in chains:
+                chains[w] = build_linear_graph(vocab[w].primary_orth, s.lexicon, s.tying, topo,
+                                               optional_silence=False).emission_ids
+            cur = st
+            for k, cls in enumerate(chains[w]):
+                last = k == len(chains[w]) - 1
+                nxt = arc.target if last else net.add_state()
+                net.add_arc(cur, nxt, int(cls) + 1, w + 1 if last else 0,
+                            (arc.weight if k == 0 else 0.0) + tdp.forward)
+                cur = nxt
+    times["expand"] = time.time() - t0
+    t0 = time.time()
+    tree = compile_wfst(net, s.tying.num_classes, vocab, tdp.loop,
+                        {i: s.lm.vocab[lemma.primary_orth] for i, lemma in enumerate(vocab)})
+    times["compile_wfst"] = time.time() - t0
+    sizes = dict(grammar_states=grammar.fsa.num_states, minimal_states=det.num_states,
+                 minimal_arcs=sum(len(a) for a in det.arcs), network_states=net.num_states)
+    return tree, times, sizes
+
+
+def wfst_phase(s, dev, samples, lengths, rng, say, reset_counts, read_counts):
+    """Grammar-constrained recognition over a composed network: the
+    command grammar (``grammar_network``), its re-entry lookahead
+    (``lookahead._wordset_general``), the bench batch through MFCC -> GMM
+    -> the decoder under the production beam; the card against the CPU,
+    and one card lattice bridged to an FSA whose best path is the
+    decoder's. Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.fsa.algorithms import best
+    from rasr_tpu_torch.lattice.lattice import decoder_lattice, lattice_to_fsa
+    from rasr_tpu_torch.models.lm.ngram import compile_ngram
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.search.decoder import TreeDecoder
+    from rasr_tpu_torch.search.lookahead import build_bigram_lookahead
+    from rasr_tpu_torch.synthetic import auto_branch_width
+
+    tree, times, sizes = grammar_network(s, rng)
+    t0 = time.time()
+    la = build_bigram_lookahead(tree, s.lm, num_classes=WFST_LA_CLASSES)
+    times["lookahead"] = time.time() - t0
+    if la is None or not la.reentry:
+        raise AssertionError("wfst: no re-entry lookahead for the grammar network")
+    junctions = np.unique(tree.we_next[tree.we_next > 0])
+    beam = dataclasses.replace(s.beam, branch_width=auto_branch_width(tree, s.beam))
+    dec = TreeDecoder(tree, compile_ngram(s.lm), beam, bigram_la=la, device=dev)
+    say(f"wfst network: {sizes}; tree {tree.stats()}, {junctions.size} junction states; "
+        f"lookahead {la.corr.shape[1] - 1} nodes x {la.corr.shape[0]} classes, reentry "
+        f"{la.reentry}; host " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+        + f"; branch width {beam.branch_width}")
+
+    def run(x, n):
+        t_a = time.time()
+        f, nf = s.frontend(x, n)
+        e = s.scorer(f)
+        torch.cuda.synchronize()
+        t_b = time.time()
+        handle = dec.decode_scores_device(e, nf)
+        res = dec.results_from_device(handle)
+        return e, nf, handle, res, np.array([t_b - t_a, time.time() - t_b])
+
+    run(samples[:, :16000], torch.full_like(lengths, 16000))  # warm-up on 1 s
+    reset_counts()
+    e, nf, _, results, dt = run(samples, lengths)
+    counts = read_counts("wfst path", gmm_scores, mfcc_frames)
+    B = samples.shape[0]
+    if len(results) != B or not all(np.isfinite(r.score) and r.words for r in results):
+        raise AssertionError("wfst decode produced an empty or non-finite result")
+    say(f"wfst path B={B} x {AUDIO_S:g} s: frontend + scorer {dt[0] * 1e3:.1f} ms, decode "
+        f"{dt[1] * 1e3:.1f} ms; {B * AUDIO_S / dt.sum():.1f} audio-s/s; launches {counts}; "
+        f"sample {results[0].orth[:60]!r} score {results[0].score:.3f}")
+    del e, results
+
+    # card == CPU on B=2 x 3 s, and a card lattice as an FSA
+    small = int(3.0 * 16000)
+    f2, nf2 = s.frontend(samples[:2, :small], torch.full((2,), small, device=dev))
+    e2 = s.scorer(f2)
+    on_cpu = TreeDecoder(tree, compile_ngram(s.lm), beam, bigram_la=la, device="cpu")
+    handle = dec.decode_scores_device(e2, nf2)
+    a = dec.results_from_device(handle)
+    b = on_cpu.decode_scores(e2.cpu(), nf2.cpu())
+    for x, y in zip(a, b):
+        if x.words != y.words or abs(x.score - y.score) > DECODE_RTOL * max(1.0, abs(y.score)):
+            raise AssertionError(f"cuda vs cpu decode (wfst): {x.words} {x.score} vs "
+                                 f"{y.words} {y.score}")
+    if not all(r.word_ends and r.word_ends[-1] == int(n) - 1 for r, n in zip(a, nf2.tolist())):
+        raise AssertionError(f"wfst: a best path does not complete at the last frame: "
+                             f"{[r.word_ends[-3:] for r in a]}")
+    lat = decoder_lattice(handle, tree.lemmas, 0)
+    fsa = lattice_to_fsa(lat)
+    cost, arcs = best(fsa)
+    labels = [fsa.input_symbols[arc.ilabel] for arc in arcs if arc.ilabel]
+    if labels != a[0].words or abs(cost - a[0].score) > 1e-4 * abs(a[0].score):
+        raise AssertionError(f"wfst lattice as an FSA: best {labels} {cost} vs the decoder's "
+                             f"{a[0].words} {a[0].score}")
+    say(f"wfst card vs cpu on B=2 x 3 s: decode equal {[r.orth[:40] for r in a]}; lattice 0 "
+        f"({lat.num_nodes} nodes, {len(lat.arcs)} arcs) as an FSA: best path == the "
+        f"decoder's ({len(labels)} words, cost {cost:.3f} vs {a[0].score:.3f})")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1453,12 +1803,21 @@ def main() -> int:
         raise AssertionError(f"bench entry: {record_b}")
 
     # ----------------------- the training side: alignment, EM, LDA, NN training
-    align_launches = align_em_phase(s, dev, samples, lengths, rng, say, reset_counts,
-                                    read_counts)
+    align_launches, em_model, align_graphs = align_em_phase(
+        s, dev, samples, lengths, rng, say, reset_counts, read_counts)
     _, ce_launches = train_ce_phase(dev, rng, say, reset_counts, counted)
     _, lfmmi_launches = train_lfmmi_phase(s, dev, rng, say, reset_counts, counted)
     say(f"launches on the training-side paths: align-em {align_launches}, fmllr recognizer "
         f"{fmllr_launches}, train-ce {ce_launches}, train-lfmmi {lfmmi_launches}")
+
+    # ------------- the other front ends, VTLN, and WFST grammar networks
+    t_a = time.time()
+    ext_err, ext_launches = frontend_ext_phase(s, dev, samples, lengths, em_model, align_graphs,
+                                               say, reset_counts, read_counts)
+    say(f"frontend-ext phase {time.time() - t_a:.1f} s, launches {ext_launches}")
+    t_a = time.time()
+    wfst_launches = wfst_phase(s, dev, samples, lengths, rng, say, reset_counts, read_counts)
+    say(f"wfst phase {time.time() - t_a:.1f} s, launches {wfst_launches}")
 
     # --------------------- CUDA decode == CPU decode, every beam and path
     small = int(3.0 * 16000)
@@ -1539,7 +1898,7 @@ def main() -> int:
          "bound_by": gmm_bound[1], "library_ms": gmm_lib_ms},
         {"name": "mfcc_frames", "route": "cuda", "source": "rasr_tpu_torch/csrc/mfcc_fused.cu",
          "replaces": "rasr_tpu/ops/pallas/frontend_kernel.py:50",
-         "launches": launches["mfcc_frames"], "max_abs_err": mfcc_err,
+         "launches": launches["mfcc_frames"], "max_abs_err": max(mfcc_err, ext_err),
          "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound[0],
          "bound_by": mfcc_bound[1], "library_ms": mfcc_lib_ms},
         {"name": "wordend_block", "route": "cuda",

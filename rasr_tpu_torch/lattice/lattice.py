@@ -18,8 +18,8 @@ image and ``lattice_from_records`` as the reference has them;
 :func:`decoder_lattice` reads a decode's own handle (its records, final
 beams and ``</s>`` costs, copied to the host once per handle) where the
 reference reads the decoder's last decode. The FSA bridge
-(``lattice_to_fsa`` / ``fsa_to_lattice``) comes with the port of
-``fsa/automaton.py``.
+(:func:`lattice_to_fsa` / :func:`fsa_to_lattice`) runs over the port's
+copy of ``fsa/``.
 """
 
 from __future__ import annotations
@@ -228,4 +228,81 @@ def decoder_lattice(handle, lemmas: Sequence, b: int = 0) -> Lattice:
     return lattice_from_records(
         host.records, b, handle.word_end_limit, lemmas, host.finals,
         int(host.n_frames[b]), num_final_states=handle.num_final_states,
+    )
+
+
+# ------------------------------------------------------------ FSA bridge
+def lattice_to_fsa(
+    lat: Lattice, am_scale: float = 1.0, lm_scale: float = 1.0
+):
+    """Word lattice -> weighted acceptor over lemma labels.
+
+    The reference's Flf layer IS an Fsa layer with extra score dimensions
+    (ref: src/Flf/ builds on src/Fsa/); this bridge flattens the (am, lm)
+    dimensions with the given scales so the full automata toolbox
+    (fsa/algorithms: union, push, determinize, compose, n-best, ...)
+    applies to lattices. Label i is lemma index i-1; epsilon arcs keep
+    label 0. A super-final state absorbs per-node final scores.
+    """
+    from ..fsa.automaton import EPS, Automaton
+
+    fsa = Automaton()
+    for _ in range(lat.num_nodes + 1):
+        fsa.add_state()
+    fsa.initial = 0
+    superfinal = lat.num_nodes
+    for a in lat.arcs:
+        label = 0 if a.lemma < 0 else a.lemma + 1
+        fsa.add_arc(
+            a.from_node, a.to_node, label,
+            weight=am_scale * a.am_score + lm_scale * a.lm_score,
+        )
+    for nd, sc in lat.final_scores.items():
+        fsa.add_arc(nd, superfinal, EPS, weight=sc)
+    fsa.set_final(superfinal, 0.0)
+    for i, orth in enumerate(lat.lemma_orths):
+        fsa.input_symbols[i + 1] = orth
+        fsa.output_symbols[i + 1] = orth
+    return fsa
+
+
+def fsa_to_lattice(fsa, lemma_orths: Optional[List[str]] = None) -> Lattice:
+    """Weighted acceptor -> word lattice (inverse bridge).
+
+    Weights land in the am dimension (lm = 0): after generic FSA
+    processing the two-dimensional score split is gone, like the
+    reference's single-dimension lattices after semiring projection.
+    Node times are unknown post-transformation (-1).
+    """
+    # Lattice's contract fixes the initial node at 0; remap by swapping
+    # state ids when the automaton starts elsewhere
+    init = max(fsa.initial, 0)
+
+    def remap(s: int) -> int:
+        if s == init:
+            return 0
+        if s == 0:
+            return init
+        return s
+
+    arcs = []
+    for s, out in enumerate(fsa.arcs):
+        for a in out:
+            arcs.append(
+                LatticeArc(
+                    remap(s), remap(a.target), a.ilabel - 1, float(a.weight), 0.0
+                )
+            )
+    if lemma_orths is None:
+        max_label = max((a.ilabel for out in fsa.arcs for a in out), default=0)
+        lemma_orths = [
+            fsa.input_symbols.get(i + 1, f"l{i}") for i in range(max_label)
+        ]
+    n = len(fsa.arcs)
+    return Lattice(
+        num_nodes=n,
+        arcs=arcs,
+        node_time=np.full(n, -1, np.int32),
+        final_scores={remap(s): float(w) for s, w in fsa.finals.items()},
+        lemma_orths=lemma_orths,
     )

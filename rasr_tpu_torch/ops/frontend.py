@@ -8,12 +8,12 @@ their inputs.
 
 On a CUDA tensor :class:`FeatureFrontend` computes the cepstra with the
 hand-written fused kernel (``ops/kernels/mfcc.py``); on a CPU tensor it
-uses the plain :func:`mfcc_from_frames`. CMVN, splice and the LDA
-projection sit outside any kernel in the reference too and stay plain
-torch.
-
-Off the ported path for now (they raise ``NotImplementedError``):
-sliding-window CMVN, deltas, ``append_energy`` and VTLN warping.
+uses the plain :func:`mfcc_from_frames`. The VTLN warp is folded into the
+mel matrix, and the log frame energy (``append_energy``) comes out of the
+same kernel launch as one more band and cepstrum
+(:func:`~rasr_tpu_torch.ops.kernels.mfcc.with_energy`). CMVN (per segment
+or sliding), deltas, splice and the LDA projection sit outside any kernel
+in the reference too and stay plain torch.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
-from .kernels.mfcc import folded_bases, mfcc_frames, pack_basis
+from .kernels.mfcc import folded_bases, mfcc_frames, pack_basis, with_energy
 
 
 # --------------------------------------------------------------------- config
@@ -228,13 +228,17 @@ def mfcc_from_frames(
     frames: torch.Tensor, params: FrontendParams, cfg: FrontendConfig
 ) -> torch.Tensor:
     """[..., T, L] windowing -> power -> mel -> log -> DCT = [..., T, C]
-    (the plain version of the fused MFCC kernel)."""
-    if cfg.append_energy:
-        raise NotImplementedError("append_energy is not ported yet")
+    (+ the log frame energy of the unwarped power spectrum as column C
+    when ``cfg.append_energy``; the plain version of the fused MFCC
+    kernel)."""
     power = power_spectrum(frames, params, cfg)
     mel_energies = torch.matmul(power, params.mel)
     log_mel = torch.log(torch.clamp(mel_energies, min=cfg.log_floor))
-    return torch.matmul(log_mel, params.dct)
+    ceps = torch.matmul(log_mel, params.dct)
+    if cfg.append_energy:
+        energy = torch.log(torch.clamp(power.sum(dim=-1, keepdim=True), min=cfg.log_floor))
+        ceps = torch.cat([ceps, energy], dim=-1)
+    return ceps
 
 
 def cmvn(
@@ -253,12 +257,36 @@ def cmvn(
     return out
 
 
-def sliding_cmvn(*args, **kwargs):
-    raise NotImplementedError("sliding-window CMVN is not ported yet")
+def sliding_cmvn(
+    feats: torch.Tensor,
+    frame_mask: torch.Tensor,
+    window: int = 300,
+    norm_variance: bool = True,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Sliding-window (cyclic) mean/variance normalization: each frame
+    normalizes by the statistics of the +-window/2 frames around it,
+    clipped at the segment edges. The reference's formula: differences of
+    float32 cumulative sums, the variance as E[x^2] - mean^2."""
+    mask = frame_mask[..., None]
+    x = feats * mask
+    half = window // 2
+    T = feats.shape[-2]
+    t = torch.arange(T, device=feats.device)
+    idx_hi = torch.clamp(t + half + 1, max=T)
+    idx_lo = torch.clamp(t - half, min=0)
 
+    def rangesum(c):
+        padded = torch.nn.functional.pad(c, (0, 0, 1, 0))
+        return padded[..., idx_hi, :] - padded[..., idx_lo, :]
 
-def deltas(*args, **kwargs):
-    raise NotImplementedError("delta features are not ported yet")
+    n = torch.clamp(rangesum(torch.cumsum(mask, dim=-2)), min=1.0)
+    mean = rangesum(torch.cumsum(x, dim=-2)) / n
+    out = (feats - mean) * mask
+    if norm_variance:
+        var = torch.clamp(rangesum(torch.cumsum(x * x, dim=-2)) / n - mean * mean, min=eps)
+        out = out * torch.rsqrt(var)
+    return out
 
 
 def edge_fill(feats: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
@@ -284,6 +312,34 @@ def splice(feats: torch.Tensor, context: int) -> torch.Tensor:
     return torch.cat(pieces, dim=-1)
 
 
+def deltas(
+    feats: torch.Tensor, order: int = 2, window: int = 2,
+    n_frames: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Append regression-based delta features of orders 1..``order``.
+
+    With ``n_frames`` (``[B, T, D]`` input), each order's output is
+    re-filled past every row's segment end (:func:`edge_fill`), so the
+    next order's clipped window reads the true per-segment edge value;
+    the caller edge-fills the input likewise."""
+    out = [feats]
+    cur = feats
+    denom = 2.0 * sum(i * i for i in range(1, window + 1))
+    T = feats.shape[-2]
+    t = torch.arange(T, device=feats.device)
+    for _ in range(order):
+        acc = torch.zeros_like(cur)
+        for i in range(1, window + 1):
+            fwd = cur[..., torch.clamp(t + i, 0, T - 1), :]
+            bwd = cur[..., torch.clamp(t - i, 0, T - 1), :]
+            acc = acc + i * (fwd - bwd)
+        cur = acc / denom
+        if n_frames is not None:
+            cur = edge_fill(cur, n_frames)
+        out.append(cur)
+    return torch.cat(out, dim=-1)
+
+
 def apply_lda(feats: torch.Tensor, lda: torch.Tensor) -> torch.Tensor:
     """Project spliced features with an LDA matrix ``[D_in, D_out]``."""
     return torch.matmul(feats, lda)
@@ -294,10 +350,14 @@ class FeatureFrontend(nn.Module):
     """End-to-end batched frontend: samples -> (spliced + LDA'd) features.
 
     ``forward(samples [B, S], lengths [B])`` returns ``(feats [B, T, D],
-    n_frames [B])`` on the module's device. On CUDA the cepstra come from
-    the fused MFCC kernel; on the CPU from the plain version. ``params``
-    overrides the bases computed from ``cfg`` (e.g. carried across from
-    the JAX frontend by ``convert.frontend_params_from_jax``).
+    n_frames [B])`` on the module's device. On CUDA the cepstra (and the
+    energy column) come from the fused MFCC kernel; on the CPU from the
+    plain version. ``vtln_warp`` (``[K, K]``, e.g.
+    ``ops.gammatone.piecewise_linear_warp``) warps the power spectrum
+    before the mel filterbank, folded into the mel matrix; the energy is
+    taken on the unwarped spectrum. ``params`` overrides the unwarped
+    bases computed from ``cfg`` (e.g. carried across from the JAX
+    frontend by ``convert.frontend_params_from_jax``).
     """
 
     def __init__(
@@ -311,24 +371,26 @@ class FeatureFrontend(nn.Module):
         params: Optional[FrontendParams] = None,
     ):
         super().__init__()
-        if delta_order:
-            raise NotImplementedError("delta features are not ported yet")
-        if vtln_warp is not None:
-            raise NotImplementedError("VTLN warping is not ported yet")
-        if cfg.normalize == "sliding":
-            raise NotImplementedError("sliding-window CMVN is not ported yet")
-        if cfg.append_energy:
-            raise NotImplementedError("append_energy is not ported yet")
         device = resolve(device)
         self.cfg = cfg
         self.splice_context = splice_context
+        self.delta_order = delta_order
         params = make_params(cfg, device) if params is None else params.to(device)
+        if vtln_warp is not None:
+            mel = np.asarray(vtln_warp, np.float32) @ params.mel.cpu().numpy()
+            params = dataclasses.replace(params, mel=torch.from_numpy(mel).to(device))
         for f, t in zip(dataclasses.fields(params), params.tensors()):
             self.register_buffer(f.name, t)
         cosw, sinw = folded_bases(params)
         self.register_buffer("cosw", cosw)
         self.register_buffer("sinw", sinw)
         self.register_buffer("basis", pack_basis(cosw, sinw))
+        # the kernel's mel and DCT operands: with the energy band and
+        # cepstrum appended after the VTLN fold (the energy is unwarped)
+        kmel, kdct = with_energy(params.mel, params.dct) if cfg.append_energy else (
+            params.mel, params.dct)
+        self.register_buffer("kmel", kmel)
+        self.register_buffer("kdct", kdct)
         if lda is None:
             self.lda = None
         else:
@@ -341,6 +403,8 @@ class FeatureFrontend(nn.Module):
     @property
     def output_dim(self) -> int:
         d = self.cfg.output_dim
+        if self.delta_order:
+            d *= self.delta_order + 1
         if self.splice_context:
             d *= 2 * self.splice_context + 1
         if self.lda is not None:
@@ -358,7 +422,7 @@ class FeatureFrontend(nn.Module):
         x = preemphasize(samples, cfg.preemphasis)
         frames = frame_signal(x, max_frames, cfg)
         if frames.is_cuda:
-            feats = mfcc_frames(frames, self.cosw, self.sinw, self.mel, self.dct,
+            feats = mfcc_frames(frames, self.cosw, self.sinw, self.kmel, self.kdct,
                                 cfg.log_floor, self.basis)
         else:
             feats = mfcc_from_frames(frames, self.params, cfg)
@@ -374,8 +438,15 @@ class FeatureFrontend(nn.Module):
         ).to(torch.float32)
         if cfg.normalize == "segment":
             feats = cmvn(feats, mask, cfg.norm_variance)
-        if self.splice_context:
+        elif cfg.normalize == "sliding":
+            feats = sliding_cmvn(feats, mask, cfg.norm_window, cfg.norm_variance)
+        if self.delta_order or self.splice_context:
+            # per-segment edge replication: context windows near a row's
+            # segment end read its true edge frame, not batch padding
             feats = edge_fill(feats, n_frames)
+        if self.delta_order:
+            feats = deltas(feats, self.delta_order, n_frames=n_frames)
+        if self.splice_context:
             feats = splice(feats, self.splice_context)
         if self.lda is not None:
             feats = apply_lda(feats, self.lda)

@@ -10,7 +10,8 @@ as the reference's Pallas kernel does. The kernel reads the bases as one
 packed tensor-core operand (:func:`pack_basis`), made once by the caller
 that owns the bases (``FeatureFrontend``). It takes any frame length and
 FFT size, and up to 144 mel bands (its shared memory holds the mel rows
-of a pass and the frames' mel energies).
+of a pass and the frames' mel energies). The log frame energy comes out
+of the same launch as one more band and cepstrum (:func:`with_energy`).
 """
 
 from __future__ import annotations
@@ -50,6 +51,20 @@ def pack_basis(cosw: torch.Tensor, sinw: torch.Tensor) -> torch.Tensor:
     planes = torch.stack(tf32_split(w))  # [2, 2, Lp, G*8]
     planes = planes.reshape(2, 2, Lp // 16, 2, 2, 4, G, 8)  # plane, cs, c, ks, h, t, gi, g
     return planes.permute(6, 2, 3, 1, 7, 5, 0, 4).contiguous()  # gi, c, ks, cs, g, t, plane, h
+
+
+def with_energy(mel: torch.Tensor, dct: torch.Tensor):
+    """The mel ``[K, M]`` and DCT ``[M, C]`` operands extended so that the
+    kernel's column C is the log frame energy ``log(max(sum_k power,
+    floor))``: an all-ones band M (the sum of the power spectrum) and a
+    unit DCT row and column that pass its log through alone."""
+    K, M = mel.shape
+    C = dct.shape[1]
+    kmel = torch.cat([mel, torch.ones((K, 1), dtype=mel.dtype, device=mel.device)], dim=1)
+    kdct = torch.zeros((M + 1, C + 1), dtype=dct.dtype, device=dct.device)
+    kdct[:M, :C] = dct
+    kdct[M, C] = 1.0
+    return kmel.contiguous(), kdct
 
 
 def mfcc_frames_plain(frames, cosw, sinw, mel, dct, log_floor: float):

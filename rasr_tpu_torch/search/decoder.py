@@ -164,7 +164,7 @@ class BigramTables:
     num_subtrees: int
     num_classes: int
     #: general (WFST) networks re-enter at junction states whose node
-    #: correction must be added back; the port does not run them
+    #: correction the decoder adds back at each word-end re-entry
     reentry: bool = False
 
     @property
@@ -851,9 +851,17 @@ class _Step:
         rec_id = t * R + torch.arange(R, device=r_score.device).expand(B, R)
         re_state = torch.where(r_valid, r_next, SENT)
         re_score = torch.where(r_valid, r_score, BIG)
+        re_phi = None
+        if bla is not None and bla.reentry:
+            # general (WFST) networks re-enter at junction states whose
+            # lookahead node is no zero-sentinel root: the re-entering
+            # score takes the node's correction under its new history,
+            # and carries it for the next word end's undo
+            re_phi = torch.where(r_valid, self.corr[bla.cls_of_lm[r_newlm], bla.sub[re_state]], 0.0)
+            re_score = torch.where(r_valid, re_score + re_phi, BIG)
 
         # ---- merge the word-end re-entries (and root-select survivors);
-        # a re-entry sits at a root, whose correction is 0
+        # a re-entry at a root carries the root's correction, 0
         m_score = torch.cat([w_score, re_score], dim=1)
         midx = _stable_order(m_score, K)
         f_score = m_score.gather(1, midx)
@@ -872,7 +880,9 @@ class _Step:
         score = torch.where(active, f_score, score)
         bp = torch.where(active, f_bp, bp)
         if bla is not None:
-            f_phi = torch.cat([w_phi, torch.zeros_like(re_score)], dim=1).gather(1, midx)
+            if re_phi is None:
+                re_phi = torch.zeros_like(re_score)
+            f_phi = torch.cat([w_phi, re_phi], dim=1).gather(1, midx)
             phi = torch.where(active, f_phi, phi)
         is_last = (t == n_frames - 1)[:, None]
 
@@ -1081,8 +1091,8 @@ class TreeDecoder:
     decoder by ``convert.tree_tables_from_jax``). ``bigram_la`` is a
     ``search.lookahead.BigramLookahead`` or its :class:`BigramTables`
     (e.g. from ``convert.bigram_tables_from_jax``); None = unigram-only
-    shaping. Lookaheads of general WFST networks (``reentry``) raise:
-    those networks (``search/wfst.py``) are not ported. ``rnn_fusion``
+    shaping; on a general WFST network (``search/wfst.py``) it is the
+    ``reentry`` lookahead of ``lookahead._wordset_general``. ``rnn_fusion``
     (``search.rnn_fusion.build_rnn_fusion``) fuses an RNN LM into the
     first pass; the offline decode sizes its state pools to R x T rows."""
 
@@ -1096,11 +1106,6 @@ class TreeDecoder:
         device=None,
         tables: Optional[TreeTables] = None,
     ):
-        if bigram_la is not None and bigram_la.reentry:
-            raise NotImplementedError(
-                "a lookahead with junction re-entries (general WFST networks, "
-                "search/wfst.py) is not ported yet"
-            )
         self.device = resolve(device)
         self.tree = tree
         self.tables = (

@@ -27,8 +27,13 @@ sys.path.insert(0, str(REPO))
 from rasr_tpu_torch import _build  # noqa: E402
 from rasr_tpu_torch.device import cuda_device  # noqa: E402
 from rasr_tpu_torch.models.gmm import MixtureSet, make_scoring_tensors  # noqa: E402
+from rasr_tpu_torch.fsa.automaton import Automaton  # noqa: E402
 from rasr_tpu_torch.ops.frontend import (  # noqa: E402
-    FrontendConfig, frame_signal, make_params, num_frames, preemphasize,
+    FeatureFrontend, FrontendConfig, frame_signal, make_params, num_frames, power_spectrum,
+    preemphasize,
+)
+from rasr_tpu_torch.ops.gammatone import (  # noqa: E402
+    GammatoneConfig, GammatoneFrontend, piecewise_linear_warp,
 )
 from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain  # noqa: E402
 from rasr_tpu_torch.ops.kernels.mfcc import (  # noqa: E402
@@ -44,6 +49,8 @@ from rasr_tpu_torch.models.nn import (  # noqa: E402
     BlstmEncoderNet, ConformerEncoderNet, init_params,
 )
 from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder  # noqa: E402
+from rasr_tpu_torch.search.lookahead import build_bigram_lookahead  # noqa: E402
+from rasr_tpu_torch.search.wfst import compile_wfst  # noqa: E402
 from rasr_tpu_torch.models.lm.rnn import RnnLm  # noqa: E402
 from rasr_tpu_torch.search.rnn_fusion import build_rnn_fusion  # noqa: E402
 from rasr_tpu_torch.search.streaming import StreamingDecoder  # noqa: E402
@@ -480,6 +487,113 @@ def test_rnn_lm_train_step_on_card_equals_cpu(card):
         err = (p.cpu() - q).abs()
         assert float((err <= 1e-4 + 1e-4 * q.abs()).float().mean()) >= 0.99, name
         assert float(err.max()) <= 2 * lr * epochs, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [1.0, 0.92])
+def test_mfcc_kernel_with_energy_and_warp_matches_plain(card, alpha):
+    """The kernel's operands of a frontend with ``append_energy`` and a
+    VTLN-warped mel (``with_energy``: one all-ones band and a unit DCT
+    row and column): the kernel == its plain twin on them, the energy
+    column included, and the column is the log of the unwarped frame
+    energy."""
+    cfg = FrontendConfig(append_energy=True)
+    fe = FeatureFrontend(cfg, vtln_warp=piecewise_linear_warp(cfg.num_bins, alpha), device=card)
+    rng = np.random.default_rng(17)
+    sig = torch.from_numpy((rng.normal(size=(3, 16000)) * 0.1).astype(np.float32)).to(card)
+    sig[1, :6000] *= 1e-3  # near-silent frames
+    frames = frame_signal(preemphasize(sig, cfg.preemphasis), num_frames(16000, cfg), cfg)
+    before = mfcc_frames.launches
+    got = mfcc_frames(frames, fe.cosw, fe.sinw, fe.kmel, fe.kdct, cfg.log_floor, fe.basis)
+    assert mfcc_frames.launches == before + 1 and got.shape[-1] == 17
+    want = mfcc_frames_plain(frames, fe.cosw, fe.sinw, fe.kmel, fe.kdct, cfg.log_floor)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    energy = torch.log(torch.clamp(power_spectrum(frames, fe.params, cfg).sum(-1), min=1e-10))
+    torch.testing.assert_close(got[..., 16], energy, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_frontend_options_on_card_equal_cpu(card):
+    """All four options (energy, sliding CMVN, deltas, VTLN) on the card
+    (the MFCC kernel, launch counted) and on the CPU: within 5e-2 (the
+    sliding window's E[x^2] - mean^2 cancels ~5 digits on short rows,
+    tests/test_torch_frontend.py)."""
+    kw = dict(delta_order=2, vtln_warp=piecewise_linear_warp(257, 0.92))
+    cfg = FrontendConfig(append_energy=True, normalize="sliding")
+    x = torch.from_numpy((np.random.default_rng(4).normal(size=(3, 12000)) * 0.1)
+                         .astype(np.float32))
+    lengths = torch.tensor([12000, 9000, 5000])
+    before = mfcc_frames.launches
+    f_card, n_card = FeatureFrontend(cfg, device=card, **kw)(x.to(card), lengths.to(card))
+    assert mfcc_frames.launches == before + 1
+    f_cpu, n_cpu = FeatureFrontend(cfg, device="cpu", **kw)(x, lengths)
+    assert f_card.shape[-1] == 51 and torch.equal(n_card.cpu(), n_cpu)
+    torch.testing.assert_close(f_card.cpu(), f_cpu, rtol=2e-4, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_gammatone_on_card_equals_cpu_without_tf32(card):
+    """The gammatone frontend with cuDNN's TF32 allowed globally: its
+    convolutions still run in float32 (strict precision inside), so the
+    card's features equal the CPU's within 1e-4 relative."""
+    cfg = GammatoneConfig(num_outputs=20)
+    x = torch.from_numpy((np.random.default_rng(6).normal(size=(2, 48000)) * 0.1)
+                         .astype(np.float32))
+    lengths = torch.tensor([48000, 31234])
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        f_card, n_card = GammatoneFrontend(cfg, device=card)(x.to(card), lengths.to(card))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    f_cpu, n_cpu = GammatoneFrontend(cfg, device="cpu")(x, lengths)
+    assert torch.equal(n_card.cpu(), n_cpu)
+    torch.testing.assert_close(f_card.cpu(), f_cpu, rtol=1e-4, atol=1e-5)
+
+
+def _alternating_wfst(lm, lemmas):
+    """A (B C)* D over the first four lemmas, classes 0-3."""
+    fsa = Automaton()
+    s0, s1, s2, s3 = (fsa.add_state() for _ in range(4))
+    fsa.initial = s0
+    for a, b, w, cost in ((s0, s1, 0, 0.0), (s1, s2, 1, 0.1), (s2, s1, 2, 0.2), (s1, s3, 3, 0.0)):
+        fsa.add_arc(a, b, w + 1, w + 1, cost)
+    fsa.set_final(s3)
+    words = [l.primary_orth for l in lemmas]
+    return compile_wfst(fsa, 4, lemmas, 0.3, {i: lm.vocab[w] for i, w in enumerate(words)})
+
+
+@pytest.mark.cuda
+def test_wfst_decode_on_card_equals_cpu(card):
+    """A grammar network under its re-entry lookahead: the card's decode
+    == the CPU's (words, scores within 1e-5, every record column)."""
+    from rasr_tpu_torch.models.lm.arpa import NgramLm
+
+    class Lemma:
+        special = None
+
+        def __init__(self, orth):
+            self.primary_orth = orth
+
+        def eval_tokens(self):
+            return [self.primary_orth]
+
+    lm = NgramLm.train_from_text([["A"] + ["B", "C"] * k + ["D"] for k in (0, 1, 1, 2, 3)],
+                                 order=2)
+    tree = _alternating_wfst(lm, [Lemma(w) for w in "ABCD"])
+    la = build_bigram_lookahead(tree, lm, num_classes=6)
+    assert la.reentry
+    beam = BeamConfig(max_hyps=8, word_end_limit=4, root_hyps=3, lm_scale=0.8)
+    on_card, on_cpu = (TreeDecoder(tree, compile_ngram(lm), beam, bigram_la=la, device=d)
+                       for d in (card, "cpu"))
+    e = torch.from_numpy(np.random.default_rng(9).uniform(0, 4, size=(3, 20, 4))
+                         .astype(np.float32))
+    n = torch.tensor([20, 15, 11])
+    ha, hb = on_card.decode_scores_device(e.to(card), n.to(card)), on_cpu.decode_scores_device(e, n)
+    a, b = on_card.results_from_device(ha), on_cpu.results_from_device(hb)
+    assert [r.words for r in a] == [r.words for r in b] and all(r.words for r in a)
+    np.testing.assert_allclose([r.score for r in a], [r.score for r in b], rtol=1e-5)
+    for col in ("lemma", "prev", "word", "lm"):
+        assert torch.equal(getattr(ha.records, col).cpu(), getattr(hb.records, col))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -749,9 +749,10 @@ def test_unported_beam_options_raise(slice_c_systems, option):
 
 def test_unported_decoder_features_raise(slice_c_systems, oracle_setup):
     """A bigram lookahead decodes and equals the JAX decoder (also from the
-    JAX decoder's own tables, carried across); lookaheads of general WFST
-    networks (junction re-entry) and beam partitioning are not ported and
-    raise (RNN fusion is ported: tests/test_torch_rnn_fusion.py)."""
+    JAX decoder's own tables, carried across); so does a lookahead with
+    junction re-entries (general WFST networks: tests/test_torch_wfst.py),
+    which raised before it was ported. Beam partitioning is not ported and
+    raises (RNN fusion is ported: tests/test_torch_rnn_fusion.py)."""
     lm, (jtree, ttree), las = slice_c_systems["within"]
     _assert_port_equals_jax(jtree, ttree, lm, 20011, _RSEL, 301, las["word-set"])
     jtables = jdec.bigram_to_device(las["word-set"][0], jtree)
@@ -762,8 +763,14 @@ def test_unported_decoder_features_raise(slice_c_systems, oracle_setup):
     junction.we_next[int(np.flatnonzero(tree.we_word[:, 0] != -1)[0]), 0] = 1
     general = build_bigram_lookahead(junction, lm, num_classes=4)
     assert general.reentry
-    with pytest.raises(NotImplementedError):
-        TreeDecoder(junction, compile_ngram(lm), bigram_la=general, device="cpu")
+    emis = np.random.default_rng(302).uniform(0.0, 6.0, size=(2, 9, 3)).astype(np.float32)
+    got = TreeDecoder(junction, compile_ngram(lm), bigram_la=general, device="cpu").decode_scores(
+        emis, [9, 6])
+    want = jdec.TreeDecoder(junction, jax_compile_ngram(lm), bigram_la=jax_build_bigram_lookahead(
+        junction, lm, num_classes=4)).decode_scores(emis, [9, 6])
+    for a, b in zip(got, want):
+        assert a.words == b.words
+        np.testing.assert_allclose(a.score, b.score, rtol=1e-4)
     dec = TreeDecoder(tree, compile_ngram(lm), device="cpu")
     with pytest.raises(NotImplementedError):
         dec.decode_scores(np.zeros((1, 2, 3), np.float32), [2], beam_axis="model")

@@ -14,8 +14,12 @@ recognizer with speaker transforms and the ``BENCH_TRAIN=1`` entry at a
 tiny width. A fourth runs the neural LM and the second pass: RNN-LM
 training, a fused decode offline and streamed, n-best lists, confusion
 networks and RNN rescoring of its lattice, an MMI accumulation and the
-battery. The port carries its own copies of the host modules, so it
-loads no module of ``rasr_tpu``.
+battery. A fifth runs the other front ends and the general networks: the
+MFCC frontend with all four options (energy, sliding CMVN, deltas, VTLN),
+the gammatone frontend, a DSP op, a VTLN grid search, and a WFST grammar
+network decoded offline and streamed under its re-entry lookahead, with
+its lattice bridged to an FSA. The port carries its own copies of the
+host modules, so it loads no module of ``rasr_tpu``.
 """
 
 import ast
@@ -264,6 +268,93 @@ def test_rnn_fusion_and_second_pass_run_without_jax():
     assert line.split()[1:] == [], line
 
 
+FRONTEND_WFST_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["rasr_tpu"] = None
+import numpy as np, torch
+from rasr_tpu_torch.align.aligner import BatchAligner
+from rasr_tpu_torch.align.graph import build_linear_graph
+from rasr_tpu_torch.fsa.algorithms import best, determinize, minimize, remove_epsilon
+from rasr_tpu_torch.fsa.automaton import Automaton
+from rasr_tpu_torch.lattice.lattice import decoder_lattice, lattice_to_fsa
+from rasr_tpu_torch.models.hmm import HmmTopology
+from rasr_tpu_torch.models.lm.grammar import FsaGrammarLm
+from rasr_tpu_torch.models.lm.ngram import compile_ngram
+from rasr_tpu_torch.ops.dsp import frame_energy
+from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig
+from rasr_tpu_torch.ops.gammatone import GammatoneConfig, GammatoneFrontend, piecewise_linear_warp
+from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
+from rasr_tpu_torch.search.lookahead import build_bigram_lookahead
+from rasr_tpu_torch.search.streaming import StreamingDecoder
+from rasr_tpu_torch.search.wfst import compile_wfst
+from rasr_tpu_torch.synthetic import build_setup
+from rasr_tpu_torch.train.vtln import estimate_warping_factor
+rng = np.random.default_rng(0)
+x = torch.from_numpy((rng.normal(size=(2, 8000)) * 0.1).astype(np.float32))
+lengths = torch.tensor([8000, 5000])
+cfg = FrontendConfig(append_energy=True, normalize="sliding", norm_window=30)
+fe = FeatureFrontend(cfg, delta_order=2, vtln_warp=piecewise_linear_warp(cfg.num_bins, 0.92),
+                     device="cpu")
+f, n = fe(x, lengths)
+assert f.shape == (2, 48, 51) and bool(torch.isfinite(f).all()), f.shape
+g, gn = GammatoneFrontend(GammatoneConfig(num_channels=8, num_outputs=4), device="cpu")(x, lengths)
+assert g.shape == (2, 48, 4) and gn.tolist() == n.tolist()
+assert frame_energy(x.reshape(2, 40, 200)).shape == (2, 40)
+beam = BeamConfig(max_hyps=32, word_end_limit=8, root_hyps=4, branch_hyps=8, lm_scale=10.0)
+s = build_setup(num_words=30, num_phones=8, num_classes=50, densities=2, beam=beam, device="cpu")
+topo = HmmTopology(states_per_phone=3, silence_states=1)
+words = [l.primary_orth for l in s.lexicon.lemmata if not l.special]
+graphs = [build_linear_graph(words[i], s.lexicon, s.tying, topo) for i in range(2)]
+best_alpha, scores = estimate_warping_factor(
+    x, lengths, graphs, BatchAligner(s.scorer), FrontendConfig(), alphas=(0.92, 1.0),
+    frontend_kwargs=dict(splice_context=4, lda=s.frontend.lda.numpy()), device="cpu")
+assert best_alpha in scores and all(np.isfinite(list(scores.values())))
+# a command grammar over 4 words: grammar acceptor -> determinize / minimize
+# -> a word loop with each word's emission class; decoded under its lookahead
+grammar = FsaGrammarLm.from_sequences([w.split() for w in (
+    "w0 w1", "w0 w2 w3", "w1 w3", "w2 w2 w1")])
+det = minimize(determinize(remove_epsilon(grammar.fsa)))
+ids = {v: k for k, v in grammar.vocab.items()}
+wfst = Automaton()
+for _ in range(det.num_states):
+    wfst.add_state()
+wfst.initial = det.initial
+for st in range(det.num_states):
+    for a in det.arcs[st]:
+        w = int(ids[a.ilabel][1:])
+        wfst.add_arc(st, a.target, w + 1, w + 1, a.weight)
+for st, c in det.finals.items():
+    wfst.set_final(st, c)
+lm_words = {w: s.lm.vocab[words[w]] for w in range(4)}
+tree = compile_wfst(wfst, 50, [s.lexicon.lemmata[1 + w] for w in range(4)], 0.3, lm_words)
+la = build_bigram_lookahead(tree, s.lm, num_classes=6)
+assert la.reentry
+dec = TreeDecoder(tree, compile_ngram(s.lm), BeamConfig(max_hyps=64, word_end_limit=16),
+                  bigram_la=la, device="cpu")
+e = torch.from_numpy(rng.uniform(0, 4, size=(2, 12, 50)).astype(np.float32))
+handle = dec.decode_scores_device(e, torch.tensor([12, 9]))
+res = dec.results_from_device(handle)
+assert all(r.words for r in res), res
+sd = StreamingDecoder(dec).restart(2, torch.tensor([12, 9]))
+for lo in range(0, 12, 5):
+    sd.feed(e[:, lo:lo + 5])
+assert [r.words for r in sd.finalize()] == [r.words for r in res]
+cost, _ = best(lattice_to_fsa(decoder_lattice(handle, tree.lemmas, 0)))
+assert abs(cost - res[0].score) <= 1e-3 * abs(res[0].score), (cost, res[0].score)
+print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu."))))
+"""
+
+
+def test_frontends_and_wfst_decode_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", FRONTEND_WFST_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = [l for l in proc.stdout.splitlines() if l.startswith("LOADED")]
+    assert line.split()[1:] == [], line
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -276,6 +367,9 @@ def _imports(path):
 def test_no_source_imports_jax():
     files = sorted((REPO / "rasr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("ops/dsp.py", "ops/gammatone.py", "train/vtln.py", "fsa/automaton.py",
+                "fsa/algorithms.py", "models/lm/grammar.py", "search/wfst.py"):
+        assert REPO / "rasr_tpu_torch" / new in files, new
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in ("jax", "flax", "optax", "rasr_tpu"), (path, name)
