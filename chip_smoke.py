@@ -81,6 +81,22 @@ counters set to 0 just before it and read just after:
   frontend on the batch, timed beside its bound, card == CPU on B=2 x 3 s;
   the VTLN grid search over the seven default factors on 8 utterances
   with the align-em path's EM model, card == CPU;
+- the tools path: the main path's setup written as files (the lexicon as
+  XML, the LM as ARPA, the LDA as .npy) and the recognizer corpus driven
+  through ``python -m rasr_tpu_torch.tools.<tool>``, one process each, at
+  the main path's width: lm-util, flat-start monophone training to 8
+  densities, a CART of 2000 leaves, triphone training to 2000 x 8 x 45,
+  and the recognizer under the production beam (given as ``search.*``
+  parameters, its logged beam asserted) twice, building and then loading
+  its network image (equal words, WER line, lattices and CTM); an
+  in-process ``OfflineRecognizer`` from the same files gives the tool's
+  words, and the tool on the CPU on the 4 shortest segments the card's
+  words and WER line; the LM parsed by the native library into packed
+  per-slot tables decodes the main batch (and the 4-gram path's LM, B=16)
+  bit-equal to the bucketed tables, and the same tables forced onto the
+  one-gather-per-probe route answer as the replicated windows do (one
+  lookup of each timed); a class LM of 200 classes decodes B=4 x 3 s on
+  the card as on the CPU;
 - the wfst path: a command grammar over 200 words of the lexicon (500
   sentences through ``FsaGrammarLm``, determinized and minimized, each
   word arc expanded into its HMM state chain) compiled by
@@ -92,7 +108,9 @@ counters set to 0 just before it and read just after:
 A small batch decoded on the card and on the CPU must agree on every
 path, and so must the lattices of a 4 x 3 s batch. Prints per-stage
 times tagged with the card's name and power limit, one JSON line of
-kernel records, and as its last line
+kernel records (``launches`` from the main path, or the microbench of a
+kernel the main path does not run; ``launches_by_path`` from every path
+that read the kernel's count), and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs a CUDA card and the
 repository beside it.
@@ -183,6 +201,15 @@ GT_RTOL, GT_ATOL = 1e-4, 1e-5
 # state chain; its re-entry lookahead with WFST_LA_CLASSES history classes
 WFST_WORDS, WFST_SENTENCES, WFST_LA_CLASSES = 200, 500, 64
 WFST_STOP_COST = 5.0  # stopping a command before its sentence ends
+# the tools phase: flat-start training for TOOLS_ITERATIONS iterations with
+# TOOLS_SPLITS density splits (1 -> 8 densities, the main path's), a CART of
+# up to TOOLS_MAX_LEAVES leaves (the main path's 2000 tied classes), the
+# recognizer on the cpu on the TOOLS_CPU_SEGMENTS shortest segments, the
+# 4-gram packed-LM decode at PACKED_4GRAM_BATCH, and a class LM of
+# CLASSLM_CLASSES classes trained on CLASSLM_SENTENCES class sentences
+TOOLS_ITERATIONS, TOOLS_SPLITS, TOOLS_MAX_LEAVES, TOOLS_CPU_SEGMENTS = 5, 3, 2000, 4
+PACKED_4GRAM_BATCH, CLASSLM_CLASSES, CLASSLM_SENTENCES = 16, 200, 500
+TOOLS_SEED = 10
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -1301,6 +1328,370 @@ def wfst_phase(s, dev, samples, lengths, rng, say, reset_counts, read_counts):
     return counts
 
 
+# -------------------------------------------------------------- the tools phase
+def lexicon_xml(lex) -> str:
+    """The lexicon as the Bliss XML that ``Lexicon.load`` reads (phonemes in
+    id order, lemmas in id order, so the ids come back unchanged)."""
+    from xml.sax.saxutils import escape
+
+    out = ["<lexicon><phoneme-inventory>"]
+    for ph in lex.phonemes:
+        var = "<variation>none</variation>" if ph.context_independent else ""
+        out.append(f"<phoneme><symbol>{escape(ph.symbol)}</symbol>{var}</phoneme>")
+    out.append("</phoneme-inventory>")
+    for lemma in lex.lemmata:
+        attr = f' special="{lemma.special}"' if lemma.special else ""
+        orths = "".join(f"<orth>{escape(o)}</orth>" for o in lemma.orth)
+        phons = "".join(
+            f'<phon score="{p.score!r}">'
+            + " ".join(lex.phonemes.by_id(i).symbol for i in p.phonemes) + "</phon>"
+            for p in lemma.pronunciations)
+        extra = "<synt/><eval/>" if lemma.special == "silence" else ""
+        out.append(f"<lemma{attr}>{orths}{phons}{extra}</lemma>")
+    out.append("</lexicon>")
+    return "".join(out)
+
+
+def run_tool(module, args, workdir, label):
+    """``python -m rasr_tpu_torch.tools.<module> args`` in ``workdir`` with a
+    JSONL log -> (stdout, log records, wall seconds, kernel launches)."""
+    import subprocess
+
+    log = os.path.join(workdir, f"{label}.jsonl")
+    cmd = [sys.executable, "-m", f"rasr_tpu_torch.tools.{module}", *args, f"--*.log-file={log}"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=workdir, env=dict(os.environ, PYTHONPATH=HERE),
+                          capture_output=True, text=True, timeout=900)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} ({label}) exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    with open(log) as fh:
+        records = [json.loads(line) for line in fh]
+    (counts,) = [r for r in records if r.get("msg") == "kernel launches"]
+    counts = {k: counts[k] for k in ("gmm_scores", "mfcc_frames", "wordend_block", "row_gather")}
+    return proc.stdout, records, wall, counts
+
+
+def tools_phase(s, dev, corpus_path, c4, samples, lengths, say, reset_counts, read_counts):
+    """The port's tool chain as separate processes at the main path's
+    width, the in-process recognizer beside it, the packed per-slot LM
+    against the bucketed tables, and a class LM. Returns the kernel
+    launches of the phase (the tools' own and the in-process ones). Its
+    random draws come from a generator of its own, so the later phases
+    see the draws they saw before it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.corpus.bliss import CorpusDescription
+    from rasr_tpu_torch.corpus.lexicon import Lexicon
+    from rasr_tpu_torch.device import cuda_ms
+    from rasr_tpu_torch.lattice.evaluator import CorpusEvaluator
+    from rasr_tpu_torch.models.cart import CartTree
+    from rasr_tpu_torch.models.gmm import MixtureSet
+    from rasr_tpu_torch.models.hmm import HmmTopology, TransitionModel
+    from rasr_tpu_torch.models.lm.arpa import NgramLm
+    from rasr_tpu_torch.models.lm.classlm import ClassLm
+    from rasr_tpu_torch.models.lm import ngram
+    from rasr_tpu_torch.models.lm.ngram import compile_ngram, lookup_prepared, prepare_lookup
+    from rasr_tpu_torch.models.lm.packed import PackedNgramLm, compile_packed
+    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+    from rasr_tpu_torch.models.tying import CartStateTying
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+    from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
+    from rasr_tpu_torch.search.decoder import BeamConfig, TreeDecoder
+    from rasr_tpu_torch.search.tree import build_prefix_tree
+    from rasr_tpu_torch.synthetic import PRODUCTION_BEAM, auto_branch_width
+    from rasr_tpu_torch.tools.feature_extraction import (
+        FeatureExtractionTool, frontend_from_config,
+    )
+    from rasr_tpu_torch.utils.archive import FileArchive
+    from rasr_tpu_torch.utils.config import Configuration
+
+    t_phase = time.time()
+    rng = np.random.default_rng(TOOLS_SEED)
+    total = {"gmm_scores": 0, "mfcc_frames": 0, "wordend_block": 0, "row_gather": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    work = tempfile.TemporaryDirectory()
+    wd = work.name
+    paths = {name: os.path.join(wd, name) for name in (
+        "lexicon.xml", "lm.arpa", "lda.npy", "mono.mix", "cart.json", "tri.mix", "net.img",
+        "segments.txt", "4gram.arpa")}
+    with open(paths["lexicon.xml"], "w") as fh:
+        fh.write(lexicon_xml(s.lexicon))
+    s.lm.write_arpa(paths["lm.arpa"])
+    np.save(paths["lda.npy"], s.lda)
+    corpus = CorpusDescription.load(corpus_path)
+    segments = list(corpus.segments())
+    audio_s = {seg.full_name: len(CorpusVisitor(corpus, 1)._read(seg)) / 16000
+               for seg in segments}
+    audio_total = sum(audio_s.values())
+    frontend_args = ["--*.frontend.splice=4", f"--*.frontend.lda-file={paths['lda.npy']}"]
+    # the tools' frontend is the main path's
+    config = Configuration()
+    config.parse_args([*frontend_args, f"--*.device={dev}"])
+    fe = frontend_from_config(FeatureExtractionTool(config))
+    if (fe.cfg, fe.splice_context, fe.delta_order) != (
+            s.frontend.cfg, s.frontend.splice_context, s.frontend.delta_order) or not \
+            torch.equal(fe.lda.cpu(), s.frontend.lda.cpu()):
+        raise AssertionError("the tools' frontend is not the main path's")
+    say(f"tools phase: the main path's setup as files ({len(s.lexicon.lemmata)} lemmas, "
+        f"{len(s.lm.ngrams)} n-grams, LDA {s.lda.shape}), {len(segments)} segments of "
+        f"{audio_total:.1f} audio-s; frontend_from_config == the main path's frontend")
+
+    def tool(module, args, label):
+        out, records, wall, counts = run_tool(module, args, wd, label)
+        add(counts)
+        say(f"tool {label}: {wall:.1f} s, launches {counts}")
+        return out, records
+
+    # 1. lm-util
+    out, _ = tool("lm_util", ["--lm-util.action=statistics",
+                              f"--lm-util.lm-file={paths['lm.arpa']}"], "lm-util statistics")
+    stats = json.loads(out)
+    if stats["order"] != s.lm.order or stats["vocab"] != len(s.lm.vocab):
+        raise AssertionError(f"lm-util statistics: {stats}")
+    out, _ = tool("lm_util", ["--lm-util.action=compile-check",
+                              f"--lm-util.lm-file={paths['lm.arpa']}"], "lm-util compile-check")
+    if json.loads(out)["states"] != s.decoder.lm.num_states:
+        raise AssertionError(f"lm-util compile-check: {out}")
+
+    # 2-4. monophones, CART, triphones
+    amt = ["--acoustic-model-trainer.corpus-file=" + corpus_path,
+           "--acoustic-model-trainer.lexicon-file=" + paths["lexicon.xml"],
+           "--acoustic-model-trainer.states-per-phone=3",
+           f"--acoustic-model-trainer.batch-size={len(segments)}", *frontend_args]
+    train = [f"--acoustic-model-trainer.iterations={TOOLS_ITERATIONS}",
+             f"--acoustic-model-trainer.splits={TOOLS_SPLITS}"]
+    tool("acoustic_model_trainer", [*amt, *train, "--acoustic-model-trainer.action=train",
+                                    f"--acoustic-model-trainer.new-mixture-file={paths['mono.mix']}"],
+         "acoustic-model-trainer train (monophones)")
+    mono = MixtureSet.load(paths["mono.mix"])
+    _, records = tool("acoustic_model_trainer", [
+        *amt, "--acoustic-model-trainer.action=estimate-cart",
+        f"--acoustic-model-trainer.mixture-file={paths['mono.mix']}",
+        f"--acoustic-model-trainer.cart-output-file={paths['cart.json']}",
+        f"--acoustic-model-trainer.cart-max-leaves={TOOLS_MAX_LEAVES}"],
+        "acoustic-model-trainer estimate-cart")
+    (cart_rec,) = [r for r in records if r.get("msg") == "cart estimated"]
+    tool("acoustic_model_trainer", [*amt, *train, "--acoustic-model-trainer.action=train",
+                                    f"--acoustic-model-trainer.cart-file={paths['cart.json']}",
+                                    f"--acoustic-model-trainer.new-mixture-file={paths['tri.mix']}"],
+         "acoustic-model-trainer train (CART triphones)")
+    tri = MixtureSet.load(paths["tri.mix"])
+    say(f"monophones {mono.means.shape}; CART: {cart_rec['contexts']} contexts seen -> "
+        f"{cart_rec['leaves']} leaves (of {TOOLS_MAX_LEAVES} asked) in "
+        f"{cart_rec['train_seconds']:.1f} host s; triphone mixtures {tri.means.shape}")
+    if tri.max_densities != 2 ** TOOLS_SPLITS or tri.num_mixtures != cart_rec["leaves"]:
+        raise AssertionError(f"triphone mixtures {tri.means.shape}")
+
+    # the in-process system from the same files, and its production beam
+    t0 = time.time()
+    lexicon = Lexicon.load(paths["lexicon.xml"])
+    tying = CartStateTying(CartTree.load(paths["cart.json"]), lexicon)
+    lm = NgramLm.read_arpa(paths["lm.arpa"])
+    tree = build_prefix_tree(lexicon, tying, HmmTopology(states_per_phone=3), TransitionModel(),
+                             lm_vocab=lm.vocab,
+                             lm_unigrams={w: lm.score((), w) for w in lm.vocab.values()},
+                             skip_scope="phone")
+    beam = dataclasses.replace(PRODUCTION_BEAM,
+                               branch_width=auto_branch_width(tree, PRODUCTION_BEAM))
+    build_s = time.time() - t0
+
+    # 5. the recognizer, twice: the network image built and saved, then loaded
+    sr = ["--speech-recognizer.corpus-file=" + corpus_path,
+          "--speech-recognizer.lexicon-file=" + paths["lexicon.xml"],
+          "--speech-recognizer.lm-file=" + paths["lm.arpa"],
+          "--speech-recognizer.mixture-file=" + paths["tri.mix"],
+          "--speech-recognizer.cart-file=" + paths["cart.json"],
+          "--speech-recognizer.skip-scope=phone",
+          "--speech-recognizer.network-cache=" + paths["net.img"],
+          "--speech-recognizer.search.max-hyps=1024",
+          "--speech-recognizer.search.word-end-limit=64",
+          "--speech-recognizer.search.root-hyps=16",
+          "--speech-recognizer.search.branch-hyps=146",
+          "--speech-recognizer.search.root-arc-limit=160",
+          "--speech-recognizer.search.root-select=512",
+          "--speech-recognizer.search.deferred-emission=true",
+          "--speech-recognizer.search.lm-scale=10.0",
+          f"--speech-recognizer.search.branch-width={beam.branch_width}", *frontend_args]
+    runs = {}
+    for run, source in ((1, "network image saved"), (2, "network image loaded")):
+        lat, ctm = os.path.join(wd, f"lat{run}"), os.path.join(wd, f"ctm{run}")
+        out, records = tool("speech_recognizer", [
+            *sr, f"--speech-recognizer.batch-size={len(segments)}",
+            f"--speech-recognizer.lattice-archive={lat}", f"--speech-recognizer.ctm-file={ctm}"],
+            f"speech-recognizer run {run}")
+        if not any(r.get("msg") == source for r in records):
+            raise AssertionError(f"speech-recognizer run {run}: no {source!r} record")
+        (cfg_rec,) = [r for r in records if r.get("msg") == "search configuration"]
+        got = BeamConfig(**{f.name: cfg_rec[f.name] for f in dataclasses.fields(BeamConfig)})
+        if got != beam:
+            raise AssertionError(f"the tool's beam {got} is not the production beam {beam}")
+        (ready,) = [r for r in records if r.get("msg") == "network ready"]
+        words = {r["segment"]: r["recognized"] for r in records if r.get("msg") == "recognized"}
+        wer = [line for line in out.splitlines() if line.startswith("WER:")]
+        with FileArchive(lat, "r") as ar:
+            lattices = {k: ar.read(k) for k in ar.keys()}
+        with open(ctm) as fh:
+            runs[run] = dict(words=words, wer=wer, lattices=lattices, ctm=fh.read())
+        rec_t = [r["t"] for r in records if r.get("msg") == "recognized"]
+        runs[run]["decode_s"] = max(rec_t) - ready["t"]
+        say(f"speech-recognizer run {run} ({source}): network setup {ready['seconds']:.2f} s; "
+            f"{len(words)} segments recognized {ready['t']:.1f}-{max(rec_t):.1f} s into the "
+            f"process ({audio_total / runs[run]['decode_s']:.1f} audio-s/s); {wer[0]}")
+    if any(runs[1][k] != runs[2][k] for k in ("words", "wer", "lattices", "ctm")):
+        raise AssertionError("the image run differs from the build run")
+
+    # 6. the in-process recognizer from the same files == the tool
+    reset_counts()
+    t0 = time.time()
+    rec = OfflineRecognizer(
+        fe, GmmFeatureScorer(MixtureSet.load(paths["tri.mix"]), device=dev),
+        TreeDecoder(tree, compile_ngram(lm), beam, device=dev))
+    results = rec.run(CorpusVisitor(corpus, batch_size=len(segments)))
+    wall = time.time() - t0
+    add(read_counts("tools phase (in-process recognizer)", gmm_scores, mfcc_frames))
+    mine = {r.segment_name: r.orth for r in results}
+    if mine != runs[1]["words"]:
+        bad = [k for k in mine if mine[k] != runs[1]["words"].get(k)]
+        raise AssertionError(f"in-process recognizer vs the tool: {len(bad)} segments differ, "
+                             f"e.g. {bad[:1]}: {mine[bad[0]]!r} vs {runs[1]['words'][bad[0]]!r}")
+    say(f"in-process OfflineRecognizer == the tool on {len(mine)} segments (network build "
+        f"{build_s:.1f} s, recognition {wall:.2f} s: {audio_total / wall:.1f} audio-s/s)")
+
+    # the same tool on the CPU, on the 4 shortest segments
+    shortest = sorted(audio_s, key=audio_s.get)[:TOOLS_CPU_SEGMENTS]
+    with open(paths["segments.txt"], "w") as fh:
+        fh.write("\n".join(shortest) + "\n")
+    out, records = tool("speech_recognizer", [
+        *sr, f"--speech-recognizer.batch-size={TOOLS_CPU_SEGMENTS}",
+        f"--speech-recognizer.segment-list-file={paths['segments.txt']}", "--*.device=cpu"],
+        f"speech-recognizer on the cpu ({TOOLS_CPU_SEGMENTS} segments)")
+    cpu_words = {r["segment"]: r["recognized"] for r in records if r.get("msg") == "recognized"}
+    ev = CorpusEvaluator()
+    refs = {seg.full_name: seg.orth for seg in segments}
+    for name in shortest:
+        ev.add(name, refs[name], runs[1]["words"][name])
+    rep = ev.report()
+    card_wer = f"WER: {rep['wer']:.4f} ({rep['errors']} errors / {rep['ref_len']} words)"
+    cpu_wer = [line for line in out.splitlines() if line.startswith("WER:")]
+    if cpu_words != {k: runs[1]["words"][k] for k in shortest} or cpu_wer != [card_wer]:
+        raise AssertionError(f"the tool on the cpu: {cpu_words} {cpu_wer} vs the card's "
+                             f"{card_wer}")
+    say(f"the tool on the cpu == on the card on {len(shortest)} segments "
+        f"({sum(audio_s[k] for k in shortest):.1f} audio-s): {card_wer}")
+
+    # 7. the packed LM: the native parse, per-slot tables against the bucketed ones
+    def packed_vs_bucketed(label, arpa, tree_, beam_, e, n):
+        t0 = time.time()
+        plm = PackedNgramLm.from_arpa(arpa)
+        parse_s = time.time() - t0
+        if not os.path.exists(arpa + ".lmbin"):
+            raise AssertionError(f"{label}: the native parser wrote no .lmbin")
+        t0 = time.time()
+        packed = compile_packed(plm)
+        packed_s = time.time() - t0
+        t0 = time.time()
+        bucketed = compile_ngram(NgramLm.read_arpa(arpa))
+        bucketed_s = time.time() - t0
+        if packed.bucket_bits != 0 or packed.num_states != bucketed.num_states:
+            raise AssertionError(f"{label}: packed tables {packed.bucket_bits} bits, "
+                                 f"{packed.num_states} states")
+        decs = {"bucketed": TreeDecoder(tree_, bucketed, beam_, device=dev),
+                "packed": TreeDecoder(tree_, packed, beam_, device=dev)}
+        out_, rate, look = {}, {}, {}
+        B_ = e.shape[0]
+        q = torch.from_numpy(rng.integers(0, packed.num_states, size=B_ * 64)).to(dev)
+        w = torch.from_numpy(rng.integers(0, len(plm.vocab), size=B_ * 64)).to(dev)
+        for name, dec in decs.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out_[name] = dec.decode_scores(e, n)
+            torch.cuda.synchronize()
+            rate[name] = B_ * float(n.max()) / 100 / (time.time() - t0)
+            look[name] = cuda_ms(lambda d=dec: lookup_prepared(d.lm, d.lm_prep, q, w), 20)
+        for a, b in zip(out_["packed"], out_["bucketed"]):
+            if a.words != b.words or a.score != b.score:
+                raise AssertionError(f"{label}: packed {a.words} {a.score} vs bucketed "
+                                     f"{b.words} {b.score}")
+        dp = decs["packed"]
+        prep = dp.lm_prep
+        # the same per-slot tables on the route a table above REP_WINDOW_BYTES
+        # takes (one gather per probe): the same answers, and its lookup time
+        limit, ngram.REP_WINDOW_BYTES = ngram.REP_WINDOW_BYTES, 0
+        try:
+            per_probe = prepare_lookup(dp.lm)
+        finally:
+            ngram.REP_WINDOW_BYTES = limit
+        if per_probe.probes != max(packed.max_probe, 1) or any(
+                not torch.equal(a, b) for a, b in zip(lookup_prepared(dp.lm, per_probe, q, w),
+                                                      lookup_prepared(dp.lm, prep, q, w))):
+            raise AssertionError(f"{label}: the per-probe route differs from the windows")
+        look["per-probe"] = cuda_ms(lambda: lookup_prepared(dp.lm, per_probe, q, w), 20)
+        prep_mb = sum(t.numel() * t.element_size() for t in prep[:8]) / 2**20
+        say(f"{label}: native parse {parse_s:.2f} s, compile_packed {packed_s:.2f} s (per-slot: "
+            f"H={packed.table_size}, max_probe={packed.max_probe}, "
+            f"{'replicated windows' if not prep.probes else f'{prep.probes} probe gathers'}, "
+            f"lookup tables {prep_mb:.1f} MiB), compile_ngram {bucketed_s:.2f} s (bucketed: "
+            f"H={bucketed.table_size}); B={B_} decodes bit-equal; audio-s/s packed "
+            f"{rate['packed']:.1f}, bucketed {rate['bucketed']:.1f}; one lookup of {q.numel()} "
+            f"queries (CUDA events) packed {look['packed'] * 1e3:.1f} us, bucketed "
+            f"{look['bucketed'] * 1e3:.1f} us; per-slot forced to one gather per probe "
+            f"{look['per-probe'] * 1e3:.1f} us (equal answers)")
+
+    # the emissions of the packed and class-LM decodes: the phase's own
+    # launches, counted from here to the class LM's scorer call
+    reset_counts()
+    feats, n = s.frontend(samples, lengths)
+    packed_vs_bucketed("packed LM (main path)", paths["lm.arpa"], s.tree, s.beam,
+                       s.scorer(feats), n)
+    c4.lm.write_arpa(paths["4gram.arpa"])
+    B4 = PACKED_4GRAM_BATCH
+    f4, n4 = c4.frontend(samples[:B4], lengths[:B4])
+    # the packed layout numbers LM states per order, so the trigram lookahead
+    # (keyed by compile_ngram's state ids) cannot ride it: both decoders are
+    # built without it
+    packed_vs_bucketed("packed LM (4-gram path, no lookahead)", paths["4gram.arpa"], c4.tree,
+                       c4.beam, c4.scorer(f4), n4)
+
+    # 8. a class LM over the main path's vocabulary: card == cpu
+    words = [w for w in s.lm.vocab if w not in ("<s>", "</s>", "<unk>")]
+    w2c = {w: f"C{int(c)}" for w, c in zip(words, rng.integers(0, CLASSLM_CLASSES, len(words)))}
+    sentences = [[w2c[w] for w in rng.choice(words, size=int(rng.integers(3, 12)))]
+                 for _ in range(CLASSLM_SENTENCES)]
+    # every class (and <unk>) in the class LM's vocabulary
+    sentences.append([f"C{c}" for c in range(CLASSLM_CLASSES)] + ["<unk>"])
+    t0 = time.time()
+    clm = ClassLm(NgramLm.train_from_text(sentences, order=2), s.lm.vocab, w2c)
+    ctables = clm.compile_to_device()
+    compile_s = time.time() - t0
+    small = int(3.0 * 16000)
+    f3, n3 = s.frontend(samples[:4, :small], torch.full((4,), small, device=dev))
+    e3 = s.scorer(f3)
+    add(read_counts("tools phase (packed and class-LM emissions)", gmm_scores, mfcc_frames))
+    card = TreeDecoder(s.tree, ctables, s.beam, device=dev).decode_scores(e3, n3)
+    cpu = TreeDecoder(s.tree, ctables, s.beam, device="cpu").decode_scores(e3.cpu(), n3.cpu())
+    for a, b in zip(card, cpu):
+        if a.words != b.words or abs(a.score - b.score) > DECODE_RTOL * max(1.0, abs(b.score)):
+            raise AssertionError(f"class LM cuda vs cpu: {a.words} {a.score} vs {b.words} "
+                                 f"{b.score}")
+    say(f"class LM ({CLASSLM_CLASSES} classes, {len(clm.class_lm.ngrams)} class n-grams -> "
+        f"{ctables.table_size} slots, {compile_s:.1f} s): cuda == cpu decode on B=4 x 3 s: "
+        f"{[r.orth[:30] for r in card]}")
+    work.cleanup()
+    say(f"tools phase {time.time() - t_phase:.1f} s, launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1335,6 +1726,7 @@ def main() -> int:
     from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
     from rasr_tpu_torch.search.decoder import TreeDecoder, traceback
     from rasr_tpu_torch.synthetic import CONFORMER, PATHS, SLICE_A_BEAM, build_setup
+    from rasr_tpu_torch.utils import native
     from rasr_tpu_torch.utils.archive import FileArchive
 
     dev = cuda_device()
@@ -1361,6 +1753,11 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     say(f"kernel build {time.time() - t0:.2f} s (one nvcc per source, in parallel)")
+    t0 = time.time()
+    if native.load_native() is None:
+        raise AssertionError(f"the native host library did not load: {native.build_error}")
+    say(f"native host library {native.library_path().name}: {time.time() - t0:.2f} s (g++ "
+        f"of native/arpa.cc and native/rtar.cc)")
     for line in _build.build_log.splitlines():  # ptxas: registers, spills, shared memory
         if any(k in line for k in ("Compiling entry", "spill", "registers")):
             say("ptxas " + line.split(":", 1)[-1].strip())
@@ -1570,6 +1967,7 @@ def main() -> int:
         f, e, nf, results, dt = run_batch(s.decoder, samples, lengths)
         stage += dt
     launches = read_counts("main path", gmm_scores, mfcc_frames)
+    by_path = {"main": launches}  # each path's launches, for the kernels line
     peak = torch.cuda.max_memory_allocated(dev)
     check_outputs(f, e, nf, results, BATCH)
     report("main path (production beam)", stage, TIMED_BATCHES, BATCH, launches, peak)
@@ -1600,6 +1998,7 @@ def main() -> int:
     reset_counts()
     f, e, nf, results, stage = run_batch(dec_a, xa, na)
     launches_a = read_counts("slice A path", gmm_scores, mfcc_frames)
+    by_path["slice A"] = launches_a
     check_outputs(f, e, nf, results, SLICE_A_BATCH)
     report("slice A", stage, 1, SLICE_A_BATCH, launches_a)
     del f, e, results
@@ -1627,6 +2026,7 @@ def main() -> int:
         reset_counts()
         f, e, nf, results, stage = run_batch(sc.decoder, xc, nc, sc)
         counts = read_counts(f"{label} path", gmm_scores, mfcc_frames)
+        by_path[label] = counts
         peak = torch.cuda.max_memory_allocated(dev)
         check_outputs(f, e, nf, results, B_)
         report(f"{label} path", stage, 1, B_, counts, peak)
@@ -1649,6 +2049,7 @@ def main() -> int:
     reset_counts()
     f, e, nf, results, stage = run_batch(sn.decoder, samples, lengths, sn)
     nn_launches = read_counts("conformer path", mfcc_frames)
+    by_path["conformer"] = nn_launches
     peak = torch.cuda.max_memory_allocated(dev)
     check_outputs(f, e, nf, results, BATCH)
     report("conformer path", stage, 1, BATCH, nn_launches, peak)
@@ -1679,6 +2080,7 @@ def main() -> int:
     reset_counts()
     stream_rows = streaming_bench.run(dev, s)
     stream_launches = read_counts("streaming path", gmm_scores, mfcc_frames)
+    by_path["streaming"] = stream_launches
     peak = torch.cuda.max_memory_allocated(dev)
     for row in stream_rows:
         say(f"streaming block {row['block_frames']}: {row['audio_s_per_s']:.1f} audio-s/s "
@@ -1716,6 +2118,7 @@ def main() -> int:
         rec_results = recognizer.run(CorpusVisitor(corpus, batch_size=RECOGNIZER_SEGMENTS))
         wall = time.time() - t_a
         counts = read_counts(f"recognizer path ({label})", gmm_scores, mfcc_frames)
+        by_path[f"recognizer ({label})"] = counts
         rec_runs[label] = {r.segment_name: r for r in rec_results}
         say(f"recognizer ({label}): {len(rec_results)} segments, {audio_total:.1f} audio-s in "
             f"{wall:.2f} s: {audio_total / wall:.1f} audio-s/s; WER "
@@ -1785,6 +2188,10 @@ def main() -> int:
     rnn_launches = rnn_fusion_phase(s, dev, samples, lengths, corpus, batch, fb, nb, main_rate,
                                     rng, say, reset_counts, read_counts)
     say(f"rnn-fusion phase {time.time() - t_a:.1f} s, launches {rnn_launches}")
+
+    # ---------- the tools as processes, the packed LM, a class LM
+    tools_launches = tools_phase(s, dev, corpus_path, c_setups["4-gram"], samples, lengths, say,
+                                 reset_counts, read_counts)
     corpus_dir.cleanup()
     del fb
 
@@ -1795,6 +2202,8 @@ def main() -> int:
     with contextlib.redirect_stderr(io.StringIO()) as err:
         record_b = bench.run(dev, out=out, windows=BENCH_WINDOWS, iters=BENCH_ITERS)
     bench_launches = read_counts("bench path", gmm_scores, mfcc_frames)
+    by_path.update({"fmllr recognizer": fmllr_launches, "rnn-fusion": rnn_launches,
+                    "tools": tools_launches, "bench": bench_launches})
     for line in err.getvalue().splitlines():
         say(line)
     say(f"bench entry {time.time() - t_a:.1f} s, launches {bench_launches}: "
@@ -1818,6 +2227,14 @@ def main() -> int:
     t_a = time.time()
     wfst_launches = wfst_phase(s, dev, samples, lengths, rng, say, reset_counts, read_counts)
     say(f"wfst phase {time.time() - t_a:.1f} s, launches {wfst_launches}")
+    by_path.update({"align-em": align_launches, "train-ce": ce_launches,
+                    "train-lfmmi": lfmmi_launches, "frontend-ext": ext_launches,
+                    "wfst": wfst_launches, "word-end microbench": we_launches,
+                    "gather microbench": ga_launches})
+
+    def paths_of(name):
+        """``name``'s launches on every path that read its count."""
+        return {path: c[name] for path, c in by_path.items() if name in c}
 
     # --------------------- CUDA decode == CPU decode, every beam and path
     small = int(3.0 * 16000)
@@ -1893,23 +2310,27 @@ def main() -> int:
     record = {"kernels": [
         {"name": "gmm_scores", "route": "cuda", "source": "rasr_tpu_torch/csrc/gmm_fused.cu",
          "replaces": "rasr_tpu/ops/pallas/gmm_kernel.py:72",
-         "launches": launches["gmm_scores"], "max_abs_err": gmm_err,
+         "launches": launches["gmm_scores"], "launches_by_path": paths_of("gmm_scores"),
+         "max_abs_err": gmm_err,
          "ms": gmm_ms, "plain_ms": gmm_plain_ms, "bound_ms": gmm_bound[0],
          "bound_by": gmm_bound[1], "library_ms": gmm_lib_ms},
         {"name": "mfcc_frames", "route": "cuda", "source": "rasr_tpu_torch/csrc/mfcc_fused.cu",
          "replaces": "rasr_tpu/ops/pallas/frontend_kernel.py:50",
-         "launches": launches["mfcc_frames"], "max_abs_err": max(mfcc_err, ext_err),
+         "launches": launches["mfcc_frames"], "launches_by_path": paths_of("mfcc_frames"),
+         "max_abs_err": max(mfcc_err, ext_err),
          "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound[0],
          "bound_by": mfcc_bound[1], "library_ms": mfcc_lib_ms},
         {"name": "wordend_block", "route": "cuda",
          "source": "rasr_tpu_torch/csrc/wordend_fused.cu",
          "replaces": "examples/pallas_wordend_microbench.py:81",
-         "launches": we_launches["wordend_block"], "max_abs_err": we_run["max_abs_err"],
+         "launches": we_launches["wordend_block"],
+         "launches_by_path": paths_of("wordend_block"), "max_abs_err": we_run["max_abs_err"],
          "ms": we_run["ms"], "plain_ms": we_run["plain_ms"], "bound_ms": we_bound[0],
          "bound_by": we_bound[1], "library_ms": None},
         {"name": "row_gather", "route": "cuda", "source": "rasr_tpu_torch/csrc/row_gather.cu",
          "replaces": "examples/pallas_gather_microbench.py:36",
-         "launches": ga_launches["row_gather"], "max_abs_err": ga_run["max_abs_err"],
+         "launches": ga_launches["row_gather"], "launches_by_path": paths_of("row_gather"),
+         "max_abs_err": ga_run["max_abs_err"],
          "ms": ga_run["ms"], "plain_ms": ga_run["plain_ms"], "bound_ms": ga_bound[0],
          "bound_by": ga_bound[1], "library_ms": ga_lib_ms},
     ]}

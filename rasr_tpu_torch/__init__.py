@@ -27,6 +27,13 @@ The training side: ``ops.viterbi`` (banded Viterbi and forward-backward),
 ``lattice.rescore`` (acoustic lattice rescoring) and ``train`` (GMM EM,
 LDA, fMLLR and MLLR, VTLN factor estimation, training checkpoints, frame
 and sequence CE training, LF-MMI and sMBR).
+
+The documented entry points: ``tools`` (``python -m
+rasr_tpu_torch.tools.<tool>``, the reference's 13 tools over
+``utils.config`` / ``utils.component``, on the card unless the config
+names another ``device``) and the production LM path (``utils.native``,
+the port's build of ``native/*.cc``; ``models.lm.packed``;
+``models.lm.classlm``; LM images in ``models.lm.ngram``; ``models.cart``).
 """
 
 __version__ = "0.1.0"

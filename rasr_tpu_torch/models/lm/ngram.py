@@ -15,7 +15,11 @@ The host half (:func:`_hash`, :func:`build_tables`,
 reference's and must produce bit-identical tables. The device half
 (:func:`prepare_lookup`, :func:`lookup_prepared`, :func:`lookup`) keeps
 its semantics but not its TPU layouts: costs stay float32 columns (no
-int32 bit carriers) and there is no 128-lane row packing.
+int32 bit carriers) and there is no 128-lane row packing. It reads both
+table layouts: the bucketed one above and the per-slot probed one that
+``models/lm/packed.py::compile_packed`` builds (``bucket_bits == 0``).
+:func:`save_tables` / :func:`load_tables` keep the reference's npz image,
+so either package reads the other's.
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ class NgramTables:
     unk_word: int
     num_states: int
     #: the hash selects a BUCKET of 2^bits consecutive slots (entries spill
-    #: into the next bucket). 0 = legacy per-slot probing (not ported).
+    #: into the next bucket). 0 = per-slot linear probing: the hash selects
+    #: a slot and an entry lies within ``max_probe`` slots after it.
     bucket_bits: int = 0
 
     @property
@@ -200,38 +205,67 @@ def compile_ngram(lm: NgramLm, max_probe: int = 16) -> NgramTables:
     )
 
 
-class LookupTables(NamedTuple):
-    """Gather-side tables built once per decoder by :func:`prepare_lookup`."""
+#: the per-slot layout replicates each slot's probe window into one row
+#: while the four replicated columns (int64 state, word and next, float32
+#: cost: 28 bytes per slot and probe) stay within this many bytes; above
+#: it, each level gathers its ``max_probe`` slots one probe at a time
+REP_WINDOW_BYTES = 512 * 1024 * 1024
 
-    rep_state: torch.Tensor  # [BH, 2*bsz] i64: bucket b and b+1, side by side
-    rep_word: torch.Tensor  # [BH, 2*bsz] i64
-    rep_cost: torch.Tensor  # [BH, 2*bsz] f32
-    rep_next: torch.Tensor  # [BH, 2*bsz] i64
+
+class LookupTables(NamedTuple):
+    """Gather-side tables built once per decoder by :func:`prepare_lookup`.
+
+    A probe level reads the ``rep_*`` rows of its hash index: for a
+    bucketed table ``[BH, 2*bsz]`` (bucket b and b+1 side by side), for a
+    per-slot table ``[H, P]`` (slot h and the ``P - 1`` after it). When
+    ``probes`` is non-zero the per-slot window was too large to replicate:
+    ``rep_*`` are then the flat ``[H]`` columns and a level gathers slot
+    ``(h + p) & (H - 1)`` for each ``p < probes``."""
+
+    rep_state: torch.Tensor  # i64
+    rep_word: torch.Tensor  # i64
+    rep_cost: torch.Tensor  # f32
+    rep_next: torch.Tensor  # i64
     bo_cost: torch.Tensor  # [S] f32
     bo_state: torch.Tensor  # [S] i64
     uni_cost: torch.Tensor  # [V+1] f32 (row V: the no-unigram default)
     uni_next: torch.Tensor  # [V+1] i64
+    probes: int = 0
 
 
 def prepare_lookup(tables: NgramTables) -> LookupTables:
     """Build the lookup tables ONCE, outside any frame loop.
 
-    * ``rep_*``: each bucket row pair-replicated with its successor, so a
-      probe level is one row gather covering the whole spill window;
+    * ``rep_*``: each probe window laid out as one row, so a probe level
+      is one row gather: a bucket row pair-replicated with its successor,
+      or a slot's ``max_probe`` window (while it fits
+      :data:`REP_WINDOW_BYTES`);
     * ``uni_*``: the final backoff level is always the empty context, so
       it is a dense table by word id; words with no unigram hold the
       ``<unk>`` unigram (or cost 99), row V is that default for
       out-of-range ids.
     """
-    if not tables.bucket_bits:
-        raise NotImplementedError("per-slot probed (pre-bucket) LM images are not ported")
     dev = tables.key_state.device
-    bsz = 1 << tables.bucket_bits
-    BH = tables.table_size >> tables.bucket_bits
+    H = tables.table_size
+    P = max(tables.max_probe, 1)
+    probes = 0
+    if tables.bucket_bits:
+        bsz = 1 << tables.bucket_bits
+        BH = H >> tables.bucket_bits
 
-    def rep(col, dtype):
-        rows = col.to(dtype).reshape(BH, bsz)
-        return torch.cat([rows, torch.roll(rows, -1, dims=0)], dim=1).contiguous()
+        def rep(col, dtype):
+            rows = col.to(dtype).reshape(BH, bsz)
+            return torch.cat([rows, torch.roll(rows, -1, dims=0)], dim=1).contiguous()
+    elif H * P * 28 <= REP_WINDOW_BYTES:
+        window = (torch.arange(H, device=dev)[:, None] + torch.arange(P, device=dev)) & (H - 1)
+
+        def rep(col, dtype):
+            return col.to(dtype)[window]
+    else:
+        probes = P
+
+        def rep(col, dtype):
+            return col.to(dtype)
 
     ks = tables.key_state.cpu().numpy()
     kw = tables.key_word.cpu().numpy()
@@ -258,6 +292,7 @@ def prepare_lookup(tables: NgramTables) -> LookupTables:
         bo_state=tables.backoff_state.to(torch.int64),
         uni_cost=torch.from_numpy(uni_cost).to(dev),
         uni_next=torch.from_numpy(uni_next).to(dev),
+        probes=probes,
     )
 
 
@@ -272,18 +307,23 @@ def lookup_prepared(
     dense unigram level; unknown words get the ``<unk>`` unigram or 99."""
     states = states.to(torch.int64)
     words = words.to(torch.int64)
-    BH = tables.table_size >> tables.bucket_bits
+    H = tables.table_size
+    mask = (H >> tables.bucket_bits) - 1  # the bucket or the slot index
+    if prep.probes:
+        offsets = torch.arange(prep.probes, device=states.device)
     acc = torch.zeros(states.shape, dtype=torch.float32, device=states.device)
     nxt = torch.zeros_like(states)
     found = torch.zeros(states.shape, dtype=torch.bool, device=states.device)
     cur = states
     for _level in range(tables.order - 1):
-        hb = hash_torch(cur, words, BH - 1)
-        match = (prep.rep_state[hb] == cur[..., None]) & (prep.rep_word[hb] == words[..., None])
+        h = hash_torch(cur, words, mask)
+        if prep.probes:
+            h = (h[..., None] + offsets) & (H - 1)  # [..., P] slots
+        match = (prep.rep_state[h] == cur[..., None]) & (prep.rep_word[h] == words[..., None])
         # keys are unique in the table: at most one slot of the window hits
         hit_any = match.any(dim=-1)
-        hit_cost = torch.where(match, prep.rep_cost[hb], 0.0).sum(dim=-1)
-        hit_next = torch.where(match, prep.rep_next[hb], 0).sum(dim=-1)
+        hit_cost = torch.where(match, prep.rep_cost[h], 0.0).sum(dim=-1)
+        hit_next = torch.where(match, prep.rep_next[h], 0).sum(dim=-1)
         new_hit = hit_any & ~found
         acc = torch.where(new_hit, acc + hit_cost, acc)
         nxt = torch.where(new_hit, hit_next, nxt)
@@ -304,3 +344,50 @@ def lookup(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-shot lookup (builds the lookup tables; keep it out of loops)."""
     return lookup_prepared(tables, prepare_lookup(tables), states, words)
+
+
+def score_batch(tables: NgramTables, states: torch.Tensor, words: torch.Tensor):
+    """Costs and next states of ``(states, words)`` pairs (one-shot)."""
+    return lookup(tables, states, words)
+
+
+# ------------------------------------------------------------- image caching
+def save_tables(tables: NgramTables, path: str) -> None:
+    """Persist compiled tables in the reference's npz image (hash-table
+    construction over millions of n-grams is a build step, not a startup
+    step); ``aux`` holds the seven scalars, ``bucket_bits`` last."""
+    np.savez_compressed(
+        path,
+        key_state=tables.key_state.cpu().numpy(),
+        key_word=tables.key_word.cpu().numpy(),
+        val_cost=tables.val_cost.cpu().numpy(),
+        val_next=tables.val_next.cpu().numpy(),
+        backoff_cost=tables.backoff_cost.cpu().numpy(),
+        backoff_state=tables.backoff_state.cpu().numpy(),
+        aux=np.array(
+            [tables.order, tables.max_probe, tables.start_state, tables.end_word,
+             tables.unk_word, tables.num_states, tables.bucket_bits],
+            np.int64,
+        ),
+    )
+
+
+def load_tables(path: str) -> NgramTables:
+    """Read an image of either package (host tensors, as
+    :func:`compile_ngram` returns them). A six-entry ``aux`` (an image
+    written before bucketing) means per-slot probing."""
+    with np.load(path, allow_pickle=False) as data:
+        aux = data["aux"]
+        arrays = {k: torch.from_numpy(data[k]) for k in (
+            "key_state", "key_word", "val_cost", "val_next", "backoff_cost",
+            "backoff_state")}
+    return NgramTables(
+        **arrays,
+        order=int(aux[0]),
+        max_probe=int(aux[1]),
+        start_state=int(aux[2]),
+        end_word=int(aux[3]),
+        unk_word=int(aux[4]),
+        num_states=int(aux[5]),
+        bucket_bits=int(aux[6]) if aux.shape[0] > 6 else 0,
+    )

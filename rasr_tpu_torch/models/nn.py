@@ -206,6 +206,14 @@ class BlstmEncoderNet(nn.Module):
         self.layers = nn.ModuleList(
             nn.LSTM(a, w, batch_first=True, bidirectional=True, device=device)
             for a, w in zip(widths[:-1], hidden))
+        # flax's cell has one bias per gate (its hidden projection's),
+        # carried here as ``bias_hh``; ``bias_ih`` stays zero and out of
+        # training, or every update would move the gates' bias twice
+        for lstm in self.layers:
+            for name, p in lstm.named_parameters():
+                if name.startswith("bias_ih"):
+                    p.detach().zero_()
+                    p.requires_grad_(False)
         self.output = nn.Linear(widths[-1], num_classes, device=device)
         self.cdt = _dtype(compute_dtype)
 

@@ -596,6 +596,109 @@ def test_wfst_decode_on_card_equals_cpu(card):
         assert torch.equal(getattr(ha.records, col).cpu(), getattr(hb.records, col))
 
 
+def _per_slot_lm(seed=0, words=300, order=3):
+    """A random LM through ``compile_packed`` (per-slot probed tables)."""
+    from rasr_tpu_torch.models.lm.arpa import NgramLm
+    from rasr_tpu_torch.models.lm.packed import PackedNgramLm, compile_packed
+
+    rng = np.random.default_rng(seed)
+    vocab = {"<s>": 0, "</s>": 1, "<unk>": 2}
+    for i in range(words):
+        vocab[f"w{i}"] = len(vocab)
+    ids = list(vocab.values())
+    ngrams = {(w,): (float(rng.uniform(1, 9)), float(rng.uniform(0.1, 2))) for w in ids}
+    for k in range(2, order + 1):
+        prev = [g for g in ngrams if len(g) == k - 1]
+        for _ in range(6 * words):
+            g = prev[int(rng.integers(len(prev)))] + (int(rng.choice(ids)),)
+            ngrams[g] = (float(rng.uniform(1, 8)), float(rng.uniform(0.1, 1.5)) if k < order
+                         else 0.0)
+    return compile_packed(PackedNgramLm.from_ngram_lm(NgramLm(order, vocab, ngrams)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["replicated", "per-probe"])
+def test_per_slot_lookup_on_card_equals_cpu(card, route, monkeypatch):
+    """Per-slot ``lookup_prepared`` on the card == on the CPU, on both
+    routes (the window threshold at 0 forces one gather per probe)."""
+    from rasr_tpu_torch.models.lm import ngram
+
+    tables = _per_slot_lm()
+    assert tables.bucket_bits == 0
+    if route == "per-probe":
+        monkeypatch.setattr(ngram, "REP_WINDOW_BYTES", 0)
+    rng = np.random.default_rng(1)
+    states = torch.from_numpy(rng.integers(0, tables.num_states, 4096))
+    words = torch.from_numpy(rng.integers(0, 310, 4096))
+    got = ngram.lookup_prepared(tables.to(card), ngram.prepare_lookup(tables.to(card)),
+                                states.to(card), words.to(card))
+    want = ngram.lookup_prepared(tables, ngram.prepare_lookup(tables), states, words)
+    assert ngram.prepare_lookup(tables).probes == (tables.max_probe if route == "per-probe" else 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_packed_decode_on_card_equals_bucketed(card, tmp_path):
+    """The decoder over packed per-slot tables (the native parse of the
+    LM's ARPA file) on the card gives the words and scores of the decoder
+    over the bucketed tables of the same file, bit for bit."""
+    from rasr_tpu_torch.models.lm.arpa import NgramLm
+    from rasr_tpu_torch.models.lm.packed import PackedNgramLm, compile_packed
+    from rasr_tpu_torch.utils import native
+
+    assert native.load_native() is not None, native.build_error
+    beam = BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=8, branch_hyps=16, lm_scale=10.0)
+    s = build_setup(num_words=200, num_classes=200, densities=2, beam=beam, device=card)
+    arpa = str(tmp_path / "lm.arpa")
+    s.lm.write_arpa(arpa)
+    x = torch.from_numpy((np.random.default_rng(2).normal(size=(4, 32000)) * 0.1)
+                         .astype(np.float32)).to(card)
+    feats, n = s.frontend(x, torch.full((4,), 32000, device=card))
+    e = s.scorer(feats)
+    res = [TreeDecoder(s.tree, t, s.beam, device=card).decode_scores(e, n)
+           for t in (compile_packed(PackedNgramLm.from_arpa(arpa)),
+                     compile_ngram(NgramLm.read_arpa(arpa)))]
+    assert [(r.words, r.score) for r in res[0]] == [(r.words, r.score) for r in res[1]]
+    assert all(r.words for r in res[0])
+
+
+@pytest.mark.cuda
+def test_tool_runs_on_the_card(card, tmp_path):
+    """A tool started without ``device`` computes on the card: features
+    through the MFCC kernel equal the CPU run's within the kernel's
+    tolerance, and the run logs its kernel launches."""
+    import json
+    import os
+
+    from rasr_tpu_torch.corpus.audio import write_wav
+    from rasr_tpu_torch.utils.archive import FileArchive, unpack_ndarray
+
+    rng = np.random.default_rng(3)
+    xml = ['<corpus name="c">']
+    for i in range(3):
+        write_wav(str(tmp_path / f"r{i}.wav"), (rng.normal(size=16000 + 4000 * i) * 0.1)
+                  .astype(np.float32))
+        xml.append(f'<recording name="r{i}" audio="r{i}.wav"><segment name="s"><orth>x</orth>'
+                   "</segment></recording>")
+    (tmp_path / "c.corpus").write_text("".join(xml) + "</corpus>")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for label, extra in (("card", []), ("cpu", ["--*.device=cpu"])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "rasr_tpu_torch.tools.feature_extraction",
+             "--feature-extraction.corpus-file=c.corpus", f"--feature-extraction.cache={label}",
+             f"--feature-extraction.log-file={label}.log", *extra],
+            cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+    records = [json.loads(line) for line in (tmp_path / "card.log").read_text().splitlines()]
+    assert records[0]["card"] and records[-1]["mfcc_frames"] >= 1
+    with FileArchive(str(tmp_path / "card"), "r") as a, FileArchive(str(tmp_path / "cpu"), "r") as b:
+        assert sorted(a.keys()) == sorted(b.keys())
+        for k in a.keys():
+            np.testing.assert_allclose(unpack_ndarray(a.read(k)), unpack_ndarray(b.read(k)),
+                                       rtol=1e-3, atol=1e-3)
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """No card: exit non-zero and print no result. Alone in a directory
     (no port beside it): the same, card or not."""

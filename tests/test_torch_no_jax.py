@@ -18,8 +18,15 @@ battery. A fifth runs the other front ends and the general networks: the
 MFCC frontend with all four options (energy, sliding CMVN, deltas, VTLN),
 the gammatone frontend, a DSP op, a VTLN grid search, and a WFST grammar
 network decoded offline and streamed under its re-entry lookahead, with
-its lattice bridged to an FSA. The port carries its own copies of the
-host modules, so it loads no module of ``rasr_tpu``.
+its lattice bridged to an FSA. A sixth runs the tools in-process on a
+toy corpus (features, flat-start and CART training, the recognizer with a
+network image, lattices and CTM, lm-util, flf-tool, doc_gen's tool list,
+which it imports by string), the packed LM through the native parser and
+its images, a class LM, and the profiling helper; ``jax``, ``flax``,
+``optax`` and ``msgpack`` are unimportable there too. A tool started as
+``python -m rasr_tpu_torch.tools.<tool>`` without a ``device`` fails where
+no card is visible. The port carries its own copies of the host modules,
+so it loads no module of ``rasr_tpu``.
 """
 
 import ast
@@ -355,6 +362,96 @@ def test_frontends_and_wfst_decode_run_without_jax():
     assert line.split()[1:] == [], line
 
 
+TOOLS_SCRIPT = r"""
+import contextlib, io, os, sys, tempfile
+for name in ("jax", "flax", "optax", "msgpack", "rasr_tpu"):
+    sys.modules[name] = None
+from pathlib import Path
+import numpy as np, torch
+from tests.tools_parity import toy_corpus
+from rasr_tpu_torch.models.lm.arpa import NgramLm
+from rasr_tpu_torch.models.lm.classlm import ClassLm
+from rasr_tpu_torch.models.lm.ngram import load_tables, save_tables, score_batch
+from rasr_tpu_torch.models.lm.packed import PackedNgramLm, compile_packed
+from rasr_tpu_torch.pipeline.model_combination import ModelCombination
+from rasr_tpu_torch.tools import (acoustic_model_trainer, doc_gen, feature_extraction, flf_tool,
+                                  lm_util, speech_recognizer)
+from rasr_tpu_torch.utils import native, profiling
+tmp = Path(tempfile.mkdtemp())
+toy_corpus(tmp)
+os.chdir(tmp)
+def run(tool, *args):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        assert tool.main([*args, "--*.device=cpu"]) == 0, tool
+    return out.getvalue()
+amt = ["--acoustic-model-trainer.corpus-file=toy.corpus",
+       "--acoustic-model-trainer.lexicon-file=lexicon.xml",
+       "--acoustic-model-trainer.states-per-phone=1",
+       "--acoustic-model-trainer.frontend.normalize=none"]
+run(feature_extraction.FeatureExtractionTool, "--feature-extraction.corpus-file=toy.corpus",
+    "--feature-extraction.frontend.normalize=none")
+run(acoustic_model_trainer.AcousticModelTrainerTool, *amt, "--acoustic-model-trainer.iterations=3",
+    "--acoustic-model-trainer.new-mixture-file=mono.mix")
+run(acoustic_model_trainer.AcousticModelTrainerTool, *amt,
+    "--acoustic-model-trainer.action=estimate-cart", "--acoustic-model-trainer.mixture-file=mono.mix",
+    "--acoustic-model-trainer.cart-max-leaves=4")
+run(acoustic_model_trainer.AcousticModelTrainerTool, *amt, "--acoustic-model-trainer.iterations=3",
+    "--acoustic-model-trainer.cart-file=cart.json", "--acoustic-model-trainer.new-mixture-file=tri.mix")
+sr = ["--speech-recognizer.corpus-file=toy.corpus", "--speech-recognizer.lexicon-file=lexicon.xml",
+      "--speech-recognizer.lm-file=lm.arpa", "--speech-recognizer.mixture-file=tri.mix",
+      "--speech-recognizer.cart-file=cart.json", "--speech-recognizer.states-per-phone=1",
+      "--speech-recognizer.search.lm-scale=2.0", "--speech-recognizer.search.max-hyps=128",
+      "--speech-recognizer.frontend.normalize=none", "--speech-recognizer.network-cache=net",
+      "--speech-recognizer.lattice-archive=lat", "--speech-recognizer.ctm-file=ctm"]
+first = run(speech_recognizer.SpeechRecognizerTool, *sr)
+assert "WER: 0.0000" in first and run(speech_recognizer.SpeechRecognizerTool, *sr) == first
+assert Path("net.lm.npz").exists() and len(Path("ctm").read_text().splitlines()) == 16
+assert '"order": 2' in run(lm_util.LmUtilTool, "--lm-util.lm-file=lm.arpa")
+assert "WER: 0.0000" in run(flf_tool.FlfTool, "--flf-tool.lattice-archive=lat",
+                            "--flf-tool.corpus-file=toy.corpus", "--flf-tool.ops=best evaluate")
+assert len(list(doc_gen.tool_classes())) == len(doc_gen.TOOLS)
+assert native.load_native() is not None, native.build_error
+packed = PackedNgramLm.from_arpa("lm.arpa")
+assert Path("lm.arpa.lmbin").exists()
+tables = compile_packed(packed)
+save_tables(tables, "packed.npz")
+cost, _ = score_batch(load_tables("packed.npz"), torch.tensor([0]), torch.tensor([packed.vocab["AB"]]))
+assert torch.isfinite(cost).all()
+w2c = {"AB": "C0", "BA": "C0"}
+clm = ClassLm(NgramLm.train_from_text([["C0", "C0"], ["<unk>"]], order=2), packed.vocab, w2c)
+assert clm.compile_to_device().table_size > 0
+assert ModelCombination.__dataclass_fields__["lm_scale"]
+out, rows = profiling.profile_call(lambda x: x * 2, torch.ones(4), log_dir=str(tmp / "prof"))
+assert isinstance(profiling.top_table(rows), str)
+print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu."))))
+"""
+
+
+def test_tools_and_the_lm_path_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = [l for l in proc.stdout.splitlines() if l.startswith("LOADED")]
+    assert line.split()[1:] == [], line
+
+
+def test_tool_without_a_device_fails_without_a_card(tmp_path):
+    """``python -m rasr_tpu_torch.tools.<tool>`` left without ``device``
+    computes on the card; where none is visible it fails, writing nothing,
+    instead of running on the CPU."""
+    (tmp_path / "c.corpus").write_text('<corpus name="c"></corpus>')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "rasr_tpu_torch.tools.feature_extraction",
+         "--feature-extraction.corpus-file=c.corpus", "--feature-extraction.cache=f.cache"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA device visible" in proc.stderr
+    assert not (tmp_path / "f.cache").exists()
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -364,12 +461,42 @@ def _imports(path):
             yield node.module
 
 
+def _string_imports(path):
+    """The module names that ``importlib.import_module`` / ``__import__``
+    calls take as string literals (an f-string's literal start)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and node.args and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in ("import_module", "__import__"):
+            arg = node.args[0]
+            if isinstance(arg, ast.JoinedStr) and arg.values:
+                arg = arg.values[0]
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                yield arg.value
+
+
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "rasr_tpu")
+
+
 def test_no_source_imports_jax():
     files = sorted((REPO / "rasr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for new in ("ops/dsp.py", "ops/gammatone.py", "train/vtln.py", "fsa/automaton.py",
-                "fsa/algorithms.py", "models/lm/grammar.py", "search/wfst.py"):
+                "fsa/algorithms.py", "models/lm/grammar.py", "search/wfst.py",
+                "utils/config.py", "utils/component.py", "utils/native.py", "utils/profiling.py",
+                "models/lm/packed.py", "models/lm/classlm.py", "models/cart.py",
+                "pipeline/model_combination.py", "tools/application.py",
+                "tools/feature_extraction.py", "tools/speech_recognizer.py",
+                "tools/acoustic_model_trainer.py", "tools/nn_trainer.py", "tools/lm_util.py",
+                "tools/flf_tool.py", "tools/lattice_processor.py", "tools/corpus_statistics.py",
+                "tools/archiver.py", "tools/fsa_tool.py", "tools/log_analysis.py",
+                "tools/doc_gen.py", "examples/toy_recipe.py"):
         assert REPO / "rasr_tpu_torch" / new in files, new
+    strings = 0
     for path in files:
         for name in _imports(path):
-            assert name.split(".")[0] not in ("jax", "flax", "optax", "rasr_tpu"), (path, name)
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+        for name in _string_imports(path):
+            strings += 1
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+    assert strings >= 1  # doc_gen's tool modules

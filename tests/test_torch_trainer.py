@@ -4,7 +4,8 @@ training-state checkpoints (``train/checkpoint.py``).
 Both packages start from the same flax-initialised parameters (carried
 across with ``convert.nn_params_from_flax``) and see the same seeded
 minibatches. Three float32 steps of SGD, SGD with momentum and Adam (with
-and without coupled L2) of an FFNN and of a 2-block conformer leave the
+and without coupled L2) of an FFNN, a 2-block conformer and a BLSTM (the
+gates' one flax bias is its ``bias_hh``; ``bias_ih`` stays zero) leave the
 parameters within 1e-5 absolute + 1e-4 relative of the JAX package's,
 and the losses within 1e-5 relative. The reference's oracles
 (``tests/test_nn.py``: training learns, the BLSTM sequence task, newbob,
@@ -53,13 +54,17 @@ def _pair(kind, dropout=0.0):
         return (jnn.FeedForwardNet(num_classes=C, hidden=(16, 8)),
                 tnn.FeedForwardNet(C, D, hidden=(16, 8), dropout=dropout, device="cpu"),
                 np.zeros((2, D), np.float32))
+    if kind == "blstm":
+        return (jnn.BlstmEncoderNet(num_classes=C, hidden=(8,)),
+                tnn.BlstmEncoderNet(C, D, hidden=(8,), device="cpu"),
+                np.zeros((2, 6, D), np.float32))
     kw = dict(d_model=16, num_blocks=2, num_heads=2, ff_mult=2, conv_kernel=3)
     return (jnn.ConformerEncoderNet(num_classes=C, **kw),
             tnn.ConformerEncoderNet(C, D, **kw, device="cpu"), np.zeros((2, 6, D), np.float32))
 
 
 def _batches(kind, rng, n=3):
-    """n minibatches of frames (ffnn) or padded utterances (conformer)."""
+    """n minibatches of frames (ffnn) or padded utterances (the encoders)."""
     out = []
     for _ in range(n):
         if kind == "ffnn":
@@ -74,7 +79,7 @@ def _batches(kind, rng, n=3):
     return out
 
 
-@pytest.mark.parametrize("kind", ["ffnn", "conformer"])
+@pytest.mark.parametrize("kind", ["ffnn", "conformer", "blstm"])
 @pytest.mark.parametrize("optimizer,l2", [("sgd", 0.0), ("momentum", 0.0), ("momentum", 0.01),
                                           ("adam", 0.0), ("adam", 0.01)])
 def test_three_steps_match_jax(kind, optimizer, l2):
