@@ -97,6 +97,19 @@ counters set to 0 just before it and read just after:
   one-gather-per-probe route answer as the replicated windows do (one
   lookup of each timed); a class LM of 200 classes decodes B=4 x 3 s on
   the card as on the CPU;
+- the parallel path (``rasr_tpu_torch.parallel``): a world of one rank
+  over NCCL in this process (``OfflineRecognizer(mesh=)`` over the
+  recognizer corpus == the recognizer, WER counters merged by
+  ``psum_counters``), then two processes of this script
+  (``--parallel-rank``) sharing the card over gloo: the data-parallel
+  recognizer again, ``ShardedGmmScorer`` over a 2-way model axis ==
+  ``GmmFeatureScorer`` (min and LSE), ``dp_accumulate`` over the 64 x 998
+  frames == one accumulation, the exact partitioned beam on 16 x 10 s ==
+  the single decode (the production beam's agreement reported), the
+  per-frame ``all_gather`` timed, ``SpFrontend`` and ``sp_viterbi_align``
+  on a 5-min recording == ``FeatureFrontend`` and ``viterbi_align``, and
+  ``dryrun_multichip(2)``; then both ported examples (``streaming_demo``,
+  ``beam_sweep``) once;
 - the wfst path: a command grammar over 200 words of the lexicon (500
   sentences through ``FsaGrammarLm``, determinized and minimized, each
   word arc expanded into its HMM state chain) compiled by
@@ -113,7 +126,8 @@ kernel the main path does not run; ``launches_by_path`` from every path
 that read the kernel's count), and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It needs a CUDA card and the
-repository beside it.
+repository beside it (``--parallel-rank`` is its own rank processes'
+entry).
 """
 
 import contextlib
@@ -210,6 +224,23 @@ WFST_STOP_COST = 5.0  # stopping a command before its sentence ends
 TOOLS_ITERATIONS, TOOLS_SPLITS, TOOLS_MAX_LEAVES, TOOLS_CPU_SEGMENTS = 5, 3, 2000, 4
 PACKED_4GRAM_BATCH, CLASSLM_CLASSES, CLASSLM_SENTENCES = 16, 200, 500
 TOOLS_SEED = 10
+
+# the parallel phase (parallel/ over torch.distributed): a world of one
+# rank over NCCL in this process, then PARALLEL_WORLD processes sharing the
+# card over gloo (NCCL puts no two ranks of one communicator on one
+# device). The partitioned beams decode PARALLEL_BATCH x 10 s; the exact
+# beam covers every slice (root and branch hyps = K, no root-arc cap, root
+# select, expansion limit or deferred emission: the reference's exactness
+# precondition), words exact and scores within PART_RTOL; the time-sharded
+# frontend and alignment take a SP_SECONDS recording (~30,000 frames),
+# the alignment through a linear graph of SP_STATES states, the features
+# within the card-vs-CPU features gate; the DP EM statistics over the
+# 64 x 998 frames within EM_RTOL
+PARALLEL_WORLD, PARALLEL_BATCH, PARALLEL_SEED = 2, 16, 21
+PART_RTOL = 1e-5
+SP_SECONDS, SP_STATES = 300.0, 60
+FEAT_RTOL, FEAT_ATOL = 1e-3, 1e-3
+GATHER_REPS = 100  # all_gathers of the exact beam's per-frame payload, timed
 
 # NVIDIA's H100 SXM data sheet (dense, at 700 W): fp32 outside the tensor
 # cores, TF32 on them, and HBM3. A kernel's bound is the larger of its
@@ -1692,6 +1723,296 @@ def tools_phase(s, dev, corpus_path, c4, samples, lengths, say, reset_counts, re
     return total
 
 
+# ----------------------------------------------------------- the parallel phase
+def parallel_inputs(dev, num_classes: int):
+    """The phase's draws (every rank makes the same): the partitioned
+    beams' batch, the DP EM batch with random labels, the long recording
+    and its alignment graph's emission classes."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.ops.frontend import FrontendConfig, num_frames
+
+    rng = np.random.default_rng(PARALLEL_SEED)
+    S = int(AUDIO_S * 16000)
+
+    def noise(B, n):
+        return torch.from_numpy((rng.normal(size=(B, n)) * 0.1).astype(np.float32)).to(dev)
+
+    batch = noise(PARALLEL_BATCH, S)
+    em_batch = noise(BATCH, S)
+    labels = rng.integers(0, num_classes, size=BATCH * num_frames(S, FrontendConfig()))
+    recording = noise(1, int(SP_SECONDS * 16000))
+    graph_ids = rng.integers(0, num_classes, size=SP_STATES)
+    return batch, em_batch, labels, recording, graph_ids
+
+
+def exact_beam():
+    from rasr_tpu_torch.search.decoder import BeamConfig
+
+    return BeamConfig(max_hyps=1024, beam=1e9, word_end_limit=64, root_hyps=1024,
+                      branch_hyps=1024, lm_scale=10.0)
+
+
+def wer_counts(corpus, results) -> list:
+    """(errors, reference words) of recognizer results against the corpus."""
+    from rasr_tpu_torch.lattice.evaluator import align_tokens
+
+    orth = {seg.full_name: seg.orth for seg in corpus.segments()}
+    err = ref = 0
+    for r in results:
+        st, _ = align_tokens(orth[r.segment_name].split(), r.words)
+        err, ref = err + st.errors, ref + st.reference_length
+    return [float(err), float(ref)]
+
+
+def parallel_phase(s, dev, corpus, corpus_path, single, audio_total, say, reset_counts,
+                   read_counts):
+    """Data parallelism, TP scoring, the partitioned beam, sequence
+    parallelism, the dry run and the two examples (``rasr_tpu_torch.parallel``):
+    the world of one rank over NCCL here, then ``PARALLEL_WORLD`` gloo ranks
+    (this script with ``--parallel-rank``) on the same card. ``single`` is
+    the recognizer's best-only run over ``corpus`` (``audio_total`` s of
+    audio). Returns the phase's
+    GMM and MFCC launches, its own and its ranks'."""
+    import numpy as np
+    import torch
+
+    from rasr_tpu_torch.examples import beam_sweep, streaming_demo
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.parallel import mesh as pm
+    from rasr_tpu_torch.parallel.sharded import psum_counters
+    from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+    from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
+    from rasr_tpu_torch.search.decoder import TreeDecoder
+
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix="parallel-")
+    single_words = {name: r.words for name, r in single.items()}
+    counts = wer_counts(corpus, single.values())
+    reset_counts()
+
+    # ---- world 1 over NCCL: the DP recognizer through the mesh code
+    pm.init_distributed("nccl", "file://" + os.path.join(work, "store1"), 0, 1)
+    try:
+        mesh = pm.make_mesh(1, 1, device=dev)
+        rec = OfflineRecognizer(s.frontend, s.scorer, s.decoder, mesh=mesh)
+        torch.cuda.synchronize()
+        t_a = time.time()
+        got = rec.run(CorpusVisitor(corpus, batch_size=RECOGNIZER_SEGMENTS))
+        wall1 = time.time() - t_a
+        merged = psum_counters(mesh, np.array([wer_counts(corpus, got)])).tolist()
+    finally:
+        torch.distributed.destroy_process_group()
+    if {r.segment_name: r.words for r in got} != single_words or merged != counts:
+        raise AssertionError(f"world-1 DP recognizer != the recognizer ({merged} vs {counts})")
+    say(f"parallel world 1 (nccl, {dev}): DP recognizer == recognizer on {len(got)} segments, "
+        f"{wall1:.2f} s; WER counters (errors, words) {merged} == the single run's")
+
+    # ---- the single-rank decodes the partitioned beams are held to
+    batch, *_ = parallel_inputs(dev, s.tying.num_classes)
+    feats, n = s.frontend(batch, torch.full((PARALLEL_BATCH,), batch.shape[1], device=dev))
+    emis = s.scorer(feats)
+    torch.save({"emis": emis.cpu(), "n": n.cpu()}, os.path.join(work, "emis.pt"))
+    ref = {}
+    for label, cfg in (("exact", exact_beam()), ("production", s.beam)):
+        dec = TreeDecoder(s.tree, s.decoder.lm, cfg, tables=s.decoder.tables, device=dev)
+        torch.cuda.synchronize()
+        t_a = time.time()
+        res = dec.decode_scores(emis, n)
+        ref[label] = dict(words=[r.words for r in res], scores=[r.score for r in res],
+                          wall=time.time() - t_a)
+    audio16 = PARALLEL_BATCH * AUDIO_S
+    with open(os.path.join(work, "inputs.json"), "w") as fh:
+        json.dump(dict(corpus=corpus_path, single=single_words, counts=counts,
+                       decodes=ref), fh)
+    local = read_counts("parallel phase (world 1, single decodes)", gmm_scores, mfcc_frames)
+
+    # ---- PARALLEL_WORLD ranks over gloo on this card
+    t_a = time.time()
+    outs = pm.spawn_ranks([sys.executable, os.path.abspath(__file__), "--parallel-rank", work],
+                          PARALLEL_WORLD, "file://" + os.path.join(work, "store"), 900)
+    ranks = [json.loads(next(line for line in out.splitlines()
+                             if line.startswith("PARALLEL-RANK "))[len("PARALLEL-RANK "):])
+             for out in outs]
+    wall_ranks = time.time() - t_a
+    r0 = ranks[0]
+    say(f"parallel world {PARALLEL_WORLD} (gloo, both ranks on {dev}) in {wall_ranks:.1f} s "
+        f"(process starts and setup {r0['startup_s']:.1f} s): DP recognizer (2 x 1) == "
+        f"recognizer, {audio_total:.1f} audio-s in {r0['recognizer_s']:.2f} s: "
+        f"{audio_total / r0['recognizer_s']:.1f} audio-s/s (world 1 {audio_total / wall1:.1f}); "
+        f"merged WER counters {r0['counters']} == the single run's")
+    say(f"TP scorer (1 x 2) == GmmFeatureScorer: min max abs err {r0['tp_err']:.3e}, LSE "
+        f"{r0['tp_lse_err']:.3e} (tolerance {GMM_ATOL} + {GMM_RTOL} x score); DP EM (2 x 1) "
+        f"over {r0['em_frames']} frames == one rank within {EM_RTOL} (largest relative error "
+        f"{r0['em_err']:.2e})")
+    say(f"exact partitioned beam (1 x 2, K=1024, R=64, root = branch hyps = 1024) on "
+        f"{PARALLEL_BATCH} x {AUDIO_S:.0f} s: words == the single decode, scores within "
+        f"{PART_RTOL} (max rel {r0['exact_rel']:.2e}); {audio16 / r0['exact_s']:.1f} audio-s/s "
+        f"against the single decode's {audio16 / ref['exact']['wall']:.1f}; per-frame all_gather "
+        f"of the [{PARALLEL_BATCH}, 1024, 4] int64 payload {r0['gather_ms']:.3f} ms (gloo, "
+        f"{GATHER_REPS} timed)")
+    say(f"production beam under partition (reported, not gated: per-slice limits prune "
+        f"otherwise): {r0['production_agree']} of {PARALLEL_BATCH} utterances agree with the "
+        f"single decode, word edit distance {r0['production_word_diff'][0]} over its "
+        f"{r0['production_word_diff'][1]} words (random models: WER above 100%); {audio16 / r0['production_s']:.1f} audio-s/s against "
+        f"{audio16 / ref['production']['wall']:.1f}")
+    say(f"SpFrontend over {PARALLEL_WORLD} ranks on a {SP_SECONDS:.0f}-s recording "
+        f"({r0['sp_frames']} frames) == FeatureFrontend (max abs err {r0['sp_err']:.3e}, "
+        f"tolerance {FEAT_ATOL} + {FEAT_RTOL} x value), {r0['sp_s']:.2f} s; sp_viterbi_align == "
+        f"viterbi_align ({SP_STATES} states: the same states, cost rel {r0['sp_vit_rel']:.2e}), "
+        f"{r0['sp_vit_s']:.2f} s against {r0['vit_s']:.2f} s; dryrun_multichip(2) ok")
+
+    # ---- the two examples, once each
+    reset_counts()
+    quiet = []
+    t_a = time.time()
+    demo = streaming_demo.run(dev, say=quiet.append)
+    sweep = beam_sweep.run(dev, say=quiet.append)
+    examples = read_counts("parallel phase (examples)", gmm_scores, mfcc_frames)
+    say(f"examples in {time.time() - t_a:.1f} s: streaming_demo {demo['final'].orth!r} == offline; "
+        f"beam_sweep WER " + ", ".join(f"K={k} {w:.4f}" for k, w in sweep["wers"].items()))
+    total = {k: local[k] + examples[k] + sum(r["launches"][k] for r in ranks) for k in local}
+    for k, v in total.items():
+        if v < 1:
+            raise AssertionError(f"the parallel phase never launched {k}")
+    say(f"parallel phase {time.time() - t_phase:.1f} s, launches {total} (ranks "
+        f"{[r['launches'] for r in ranks]})")
+    return total
+
+
+def parallel_rank(work: str, rank: int, world: int, init: str) -> None:
+    """One gloo rank of the parallel phase (``--parallel-rank``), on card 0."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    sys.path.insert(0, HERE)
+    from rasr_tpu_torch.corpus.bliss import CorpusDescription
+    from rasr_tpu_torch.lattice.evaluator import align_tokens
+    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+    from rasr_tpu_torch.ops.kernels.gmm import gmm_scores
+    from rasr_tpu_torch.ops.kernels.mfcc import mfcc_frames
+    from rasr_tpu_torch.ops.viterbi import BIG, viterbi_align
+    from rasr_tpu_torch.parallel import mesh as pm
+    from rasr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rasr_tpu_torch.parallel.sequence import SpFrontend, sp_viterbi_align
+    from rasr_tpu_torch.parallel.sharded import ShardedGmmScorer, dp_accumulate, psum_counters
+    from rasr_tpu_torch.pipeline.recognizer import OfflineRecognizer
+    from rasr_tpu_torch.pipeline.visitor import CorpusVisitor
+    from rasr_tpu_torch.search.decoder import TreeDecoder
+    from rasr_tpu_torch.synthetic import build_setup
+    from rasr_tpu_torch.train.em import GmmAccumulator, accumulate
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pm.init_distributed("gloo", init, rank, world)
+    with open(os.path.join(work, "inputs.json")) as fh:
+        inputs = json.load(fh)
+    s = build_setup(device=dev)
+    dp, tp = pm.make_mesh(world, 1, device=dev), pm.make_mesh(1, world, device=dev)
+    batch, em_batch, labels, recording, graph_ids = parallel_inputs(dev, s.tying.num_classes)
+    out = dict(startup_s=time.time() - t0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        pm.all_reduce(torch.zeros(1, device=dev), dp, "data")  # start together
+        t_a = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.time() - t_a
+
+    # the DP recognizer and its merged WER counters
+    corpus = CorpusDescription.load(inputs["corpus"])
+    rec = OfflineRecognizer(s.frontend, s.scorer, s.decoder, mesh=dp)
+    got, out["recognizer_s"] = timed(lambda: rec.run(CorpusVisitor(corpus,
+                                                                  batch_size=RECOGNIZER_SEGMENTS)))
+    if {r.segment_name: r.words for r in got} != inputs["single"]:
+        raise AssertionError("the DP recognizer's words differ from the recognizer's")
+    mine = rec.evaluator.total  # this rank's share of the segments
+    out["counters"] = psum_counters(dp, np.array([[mine.errors, mine.reference_length]])).tolist()
+    if out["counters"] != inputs["counts"]:
+        raise AssertionError(f"merged WER counters {out['counters']} != {inputs['counts']}")
+
+    # the TP scorer (mixtures over model) in min and LSE mode
+    feats, _ = s.frontend(batch, torch.full((PARALLEL_BATCH,), batch.shape[1], device=dev))
+    for key, mode in (("tp_err", True), ("tp_lse_err", False)):
+        want = GmmFeatureScorer(s.mixtures, scale=s.scorer.scale, max_approx=mode, device=dev,
+                                tensors=s.scorer.tensors)(feats)
+        got_s = ShardedGmmScorer(s.mixtures, tp, scale=s.scorer.scale, max_approx=mode)(feats)
+        out[key] = check_close(f"TP scorer (max_approx={mode})", got_s, want, GMM_RTOL, GMM_ATOL)
+
+    # DP EM statistics over the 64 x 998 frames
+    f64, _ = s.frontend(em_batch, torch.full((BATCH,), em_batch.shape[1], device=dev))
+    x = f64.reshape(-1, f64.shape[-1])
+    count, s1, s2 = dp_accumulate(dp, s.mixtures, x, labels)
+    out["em_frames"] = x.shape[0]
+    acc = accumulate(GmmAccumulator.zeros(*s.mixtures.means.shape), s.mixtures, x, labels)
+    out["em_err"] = max(check_stats(f"DP EM {k}", a, b, EM_RTOL) for k, a, b in (
+        ("count", count, acc.count), ("sum", s1, acc.sum), ("sumsq", s2, acc.sumsq)))
+
+    # the partitioned beams against the single-rank decodes
+    saved = torch.load(os.path.join(work, "emis.pt"))
+    emis, n = saved["emis"].to(dev), saved["n"].to(dev)
+    for label, cfg in (("exact", exact_beam()), ("production", s.beam)):
+        dec = TreeDecoder(s.tree, s.decoder.lm, cfg, tables=s.decoder.tables, device=dev)
+        res, out[f"{label}_s"] = timed(lambda: dec.decode_scores(emis, n, mesh=tp,
+                                                                 beam_axis="model"))
+        want = inputs["decodes"][label]
+        agree = [r.words == w for r, w in zip(res, want["words"])]
+        out[f"{label}_agree"] = sum(agree)
+        out[f"{label}_word_diff"] = [sum(align_tokens(w, r.words)[0].errors
+                                         for r, w in zip(res, want["words"])),
+                                     sum(len(w) for w in want["words"])]
+        if label == "exact":
+            rel = [abs(r.score - w) / max(abs(w), 1.0) for r, w in zip(res, want["scores"])]
+            out["exact_rel"] = max(rel)
+            if not all(agree) or max(rel) > PART_RTOL:
+                raise AssertionError(f"exact partitioned beam != single decode: "
+                                     f"{sum(agree)} of {len(agree)} agree, rel {max(rel):.2e}")
+    # each rank's local top-K: (state, LM state, score bits, backpointer)
+    payload = torch.zeros((PARALLEL_BATCH, 1024, 4), dtype=torch.int64, device=dev)
+    _, t_g = timed(lambda: [pm.all_gather(payload, tp, "model", dim=1) for _ in range(GATHER_REPS)])
+    out["gather_ms"] = t_g / GATHER_REPS * 1e3
+
+    # sequence parallelism on the long recording
+    lengths = torch.full((1,), recording.shape[1], device=dev)
+    sp = SpFrontend(s.frontend, dp)
+    (chunk, n_sp), out["sp_s"] = timed(lambda: sp(recording, lengths))
+    dense, n_dense = s.frontend(recording, lengths)
+    T = dense.shape[1]
+    base = pm.axis_index(dp, "data") * chunk.shape[1]
+    hi = min(base + chunk.shape[1], T)
+    if not torch.equal(n_sp, n_dense) or bool(chunk[:, hi - base:].any()):
+        raise AssertionError("SpFrontend: frame counts or the padding past the end differ")
+    out["sp_err"] = check_close("SpFrontend chunk", chunk[:, : hi - base], dense[:, base:hi],
+                                FEAT_RTOL, FEAT_ATOL)
+    out["sp_frames"] = T
+    eids = torch.as_tensor(graph_ids, device=dev)
+    vemis = s.scorer(dense)[:, :, eids]
+    S = SP_STATES
+    costs = [torch.full((S,), v, device=dev) for v in (0.5, 0.0, 2.0, BIG, BIG)]
+    costs[3][0] = 0.0  # loop, forward, skip; init at the first state
+    costs[4][-1] = 0.0  # final at the last
+    (best_sp, states_sp), out["sp_vit_s"] = timed(
+        lambda: sp_viterbi_align(dp, vemis, *costs, n_dense))
+    (best, states), out["vit_s"] = timed(lambda: viterbi_align(vemis, *costs, n_dense))
+    if not torch.equal(states_sp, states):
+        raise AssertionError("sp_viterbi_align's states differ from viterbi_align's")
+    out["sp_vit_rel"] = float(((best_sp - best).abs() / best.abs().clamp(min=1.0)).max())
+    if out["sp_vit_rel"] > PART_RTOL:
+        raise AssertionError(f"sp_viterbi_align's cost off by {out['sp_vit_rel']:.2e}")
+
+    dryrun_multichip(world, device=dev)
+    out["launches"] = {fn.__name__: fn.launches for fn in (gmm_scores, mfcc_frames)}
+    print("PARALLEL-RANK " + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+
 def main() -> int:
     import torch
 
@@ -2192,6 +2513,10 @@ def main() -> int:
     # ---------- the tools as processes, the packed LM, a class LM
     tools_launches = tools_phase(s, dev, corpus_path, c_setups["4-gram"], samples, lengths, say,
                                  reset_counts, read_counts)
+
+    # ---- the parallel layer: DP, TP, the partitioned beam, sequence parallelism
+    by_path["parallel"] = parallel_phase(s, dev, corpus, corpus_path, rec_runs["best-only"],
+                                         audio_total, say, reset_counts, read_counts)
     corpus_dir.cleanup()
     del fb
 
@@ -2343,4 +2668,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

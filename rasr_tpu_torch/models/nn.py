@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve
 from .scorer import FeatureScorer, register_scorer
@@ -126,7 +127,11 @@ def _strict(forward):
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: input and parameters cast to ``dtype``,
-    the product rounded to it before the bias is added."""
+    the product rounded to it before the bias is added. A tensor-parallel
+    layer (``parallel/sharded.py``: its weight a DTensor) is called as a
+    module, so that its hooks place the input and the output."""
+    if isinstance(layer.weight, DTensor):
+        return layer(x.to(dtype))
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
@@ -261,7 +266,8 @@ class MultiHeadAttention(nn.Module):
         hd = d // H
 
         def heads(layer):  # [B, T, d] -> [B, H, T, hd] in the compute dtype
-            return _dense(layer, h, dtype).view(B, T, H, hd).transpose(1, 2)
+            # -1: a tensor-parallel rank holds H / model of the heads
+            return _dense(layer, h, dtype).view(B, T, -1, hd).transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
         # flax: query / jnp.sqrt(depth).astype(dtype), a float32 root rounded
@@ -272,7 +278,7 @@ class MultiHeadAttention(nn.Module):
             # row softmaxes to uniform weights, never to NaN
             scores = scores.masked_fill(~mask, torch.finfo(dtype).min)
         weights = torch.softmax(scores.float(), dim=-1)
-        ctx = (weights @ v.float()).transpose(1, 2).reshape(B, T, d)  # float32
+        ctx = (weights @ v.float()).transpose(1, 2).reshape(B, T, -1)  # float32
         return _dense(self.out, ctx, dtype)
 
 

@@ -69,25 +69,34 @@ def _frame_mask(n_frames: torch.Tensor, T: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def viterbi_forward(emissions, loop, fwd, skip, init, final, n_frames):
+def viterbi_forward(emissions, loop, fwd, skip, init, final, n_frames,
+                    return_backpointers: bool = True):
     """Min-sum forward pass.
 
     Returns (best_cost [B], final_state [B], backpointers [T, B, S] int8;
-    row 0 is zero)."""
+    row 0 is zero). With ``return_backpointers=False`` no backpointer is
+    stored: the third value is all zeros of that shape, a broadcast view
+    of one element (the reference returns zero rows there too)."""
     B, T, S = emissions.shape
     emissions = emissions.clamp(max=BIG)
     n_frames = n_frames.to(torch.int64)
-    trans = torch.stack([loop, fwd, skip])  # [3, B, S]
+    trans = torch.stack([x.expand(B, S) for x in (loop, fwd, skip)])  # [3, B, S]
     # dp behind two BIG columns: the fwd and skip predecessors are views
     dpp = torch.full((B, S + 2), BIG, dtype=emissions.dtype, device=emissions.device)
     dp = dpp[:, 2:]
     dp.copy_((init + emissions[:, 0]).clamp(max=BIG))
-    bps = torch.zeros((T, B, S), dtype=torch.int8, device=emissions.device)
+    if return_backpointers:
+        bps = torch.zeros((T, B, S), dtype=torch.int8, device=emissions.device)
+    else:
+        bps = torch.zeros((1, 1, 1), dtype=torch.int8, device=emissions.device).expand(T, B, S)
     active = _frame_mask(n_frames, T)
     for t in range(1, T):
         cand = torch.stack([dp, dpp[:, 1:-1], dpp[:, :-2]]) + trans
-        best, bp = cand.min(dim=0)  # the first minimum, as jnp.argmin
-        bps[t] = bp
+        if return_backpointers:
+            best, bp = cand.min(dim=0)  # the first minimum, as jnp.argmin
+            bps[t] = bp
+        else:
+            best = cand.amin(dim=0)
         dp.copy_(torch.where(active[t], (best + emissions[:, t]).clamp(max=BIG), dp))
     # dp is frozen from frame n_frames on, so it holds each utterance's last frame
     tot = (dp + final).clamp(max=BIG)

@@ -16,8 +16,8 @@ n-best lists are written). Per-speaker feature transforms (fMLLR,
 product before the scorer. A decoder that carries ``rnn_fusion``
 recognizes with the fused RNN LM. The n-best file holds
 ``<segment> <rank> <score> <words>`` lines from ``flf.n_best`` of each
-decode lattice. One branch of the reference is not ported and raises:
-the sharded decode (``mesh``).
+decode lattice. Over a ``mesh`` the recognizer runs data parallel (see
+``OfflineRecognizer.mesh``).
 """
 
 from __future__ import annotations
@@ -27,12 +27,14 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..lattice.evaluator import CorpusEvaluator
 from ..lattice.flf import n_best
 from ..lattice.lattice import decoder_lattice
 from ..models.scorer import FeatureScorer
 from ..ops.frontend import FeatureFrontend
+from ..parallel.mesh import data_rows
 from ..search.decoder import DecodeResult, TreeDecoder
 from ..train.fmllr import transform_batch
 from ..utils.archive import FileArchive
@@ -57,12 +59,16 @@ class OfflineRecognizer:
         nbest_file: Optional[str] = None,
         nbest: int = 10,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded decode (parallel/) is not ported yet (ROADMAP Queue 1 item 11)")
         self.frontend = frontend
         self.scorer = scorer
         self.decoder = decoder
+        #: optional ``parallel.mesh`` mesh: every rank reads the same
+        #: batches, computes features, scores and the decode of its data
+        #: share, and gets the whole batch's results (the DP decode's
+        #: assembled handle); it evaluates and logs its own share (its
+        #: evaluator's counters sum over ranks with ``psum_counters``), and
+        #: global rank 0 writes the lattice archive, CTM and n-best files
+        self.mesh = mesh
         self.lattice_archive = lattice_archive
         self.frame_shift_s = frame_shift_s
         self.log = LogManager.get().channel("recognizer", "log")
@@ -99,10 +105,10 @@ class OfflineRecognizer:
             lines.append(f"{seg.full_name} {rank} {score:.4f} {words}")
         return lines
 
-    def _cached_features(self, batch):
+    def _cached_features(self, batch, segments=slice(None)):
         from .feature_extractor import load_features
 
-        rows = [load_features(self.feature_cache, s.full_name) for s in batch.segments]
+        rows = [load_features(self.feature_cache, s.full_name) for s in batch.segments[segments]]
         T = max(r.shape[0] for r in rows)
         D = rows[0].shape[1]
         feats = np.zeros((len(rows), T, D), np.float32)
@@ -132,28 +138,34 @@ class OfflineRecognizer:
 
     def run(self, visitor: CorpusVisitor) -> List[DecodeResult]:
         results: List[DecodeResult] = []
-        archive = (
-            FileArchive(self.lattice_archive, "a") if self.lattice_archive else None
-        )
-        ctm = open(self.ctm_file, "w", encoding="utf-8") if self.ctm_file else None
-        nbf = open(self.nbest_file, "w", encoding="utf-8") if self.nbest_file else None
+        writer = self.mesh is None or dist.get_rank() == 0
+        archive = FileArchive(self.lattice_archive, "a") if self.lattice_archive and writer else None
+        ctm = open(self.ctm_file, "w", encoding="utf-8") if self.ctm_file and writer else None
+        nbf = open(self.nbest_file, "w", encoding="utf-8") if self.nbest_file and writer else None
         try:
             batches = (
                 prefetch_batches(visitor) if self.prefetch else visitor.batches()
             )
             for batch in batches:
                 t0 = time.perf_counter()
+                B = len(batch.segments)
+                mine = range(B) if self.mesh is None else range(B)[data_rows(self.mesh, B)]
+                rows = slice(mine.start, mine.stop)
+                segments = batch.segments[rows]
                 if self.feature_cache:
-                    feats, n_frames = self._cached_features(batch)
+                    feats, n_frames = self._cached_features(batch, rows)
                 else:
-                    feats, n_frames = self.frontend(batch.samples, batch.lengths)
+                    feats, n_frames = self.frontend(batch.samples[rows], batch.lengths[rows])
                 if self.feature_transforms:
-                    feats = transform_batch(torch.as_tensor(feats), batch.segments,
+                    feats = transform_batch(torch.as_tensor(feats), segments,
                                             self.feature_transforms)
                 emis = self.scorer(feats)  # stays on the device into the decode
-                handle = self.decoder.decode_scores_device(emis, n_frames)
+                if self.mesh is None:
+                    handle = self.decoder.decode_scores_device(emis, n_frames)
+                else:
+                    handle = self.decoder.decode_shard_device(emis, n_frames, self.mesh, B)
                 batch_results = self.decoder.results_from_device(handle, batch.names)
-                frames = torch.as_tensor(n_frames).cpu().numpy()  # one read per batch
+                frames = handle.n_frames.cpu().numpy()  # one read per batch
                 elapsed = time.perf_counter() - t0
                 audio_s = float(batch.lengths.sum()) / visitor.sample_rate
                 rtf = elapsed / max(audio_s, 1e-9)
@@ -161,18 +173,19 @@ class OfflineRecognizer:
                 for i, res in enumerate(batch_results):
                     results.append(res)
                     seg = batch.segments[i]
-                    if seg.orth:
-                        self.evaluator.add(seg.full_name, seg.orth, res.orth)
-                    self.stats(
-                        "recognized",
-                        segment=seg.full_name,
-                        speaker=seg.speaker or "",
-                        recognized=res.orth,
-                        reference=seg.orth,
-                        score=res.score,
-                        frames=int(frames[i]),
-                        rtf=rtf,
-                    )
+                    if i in mine:
+                        if seg.orth:
+                            self.evaluator.add(seg.full_name, seg.orth, res.orth)
+                        self.stats(
+                            "recognized",
+                            segment=seg.full_name,
+                            speaker=seg.speaker or "",
+                            recognized=res.orth,
+                            reference=seg.orth,
+                            score=res.score,
+                            frames=int(frames[i]),
+                            rtf=rtf,
+                        )
                     if archive is not None or nbf is not None:
                         lat = decoder_lattice(handle, self.decoder.tree.lemmas, i)
                         if archive is not None:

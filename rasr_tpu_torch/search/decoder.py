@@ -1,6 +1,6 @@
 """Vectorized frame-synchronous beam search over the prefix tree, in PyTorch.
 
-Counterpart of ``rasr_tpu/search/decoder.py`` on one device: the
+Counterpart of ``rasr_tpu/search/decoder.py``: the
 within-word and the across-word network (context-conditioned roots,
 word ends re-entering at ``we_next``, two final states), unigram LM
 lookahead and the history-conditioned bigram / trigram lookahead of
@@ -67,6 +67,16 @@ that frame was never decoded), a stream the live beam of utterances whose
 end it has not reached. The best path is walked back on the device
 (:func:`traceback`); its one host payload is the reference's
 ``[min(T, 512) + 1, B, 3]`` int32 array.
+
+Over a ``parallel.mesh`` mesh (``decode_scores(mesh=...)``) each data
+rank decodes its share of the utterances and the handles assemble over
+``data`` (:func:`assemble_decode`); with ``beam_axis`` the K slots also
+partition over that axis: each rank expands its K / P slots of the
+replicated carry (root and branch limits per slice, ``expansion_limit``
+divided by P, root select off: the reference's rule), the beam offset is
+an ``all_reduce(MIN)``, and one ``all_gather`` of each rank's local top-K
+per frame feeds a replicated recombination and top-K, after which the
+word ends run identically on every rank (``_Step._merge``).
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ import torch
 
 from ..device import resolve
 from ..models.lm.ngram import LookupTables, NgramTables, lookup_prepared, prepare_lookup
+from ..parallel.mesh import all_gather, all_reduce, axis_index, axis_size, data_rows
 from .rnn_fusion import RnnFusionTables, cell_step, word_scores
 from .tree import BIG, WORD_NONE, PrefixTree
 
@@ -487,10 +498,19 @@ class _Step:
 
     def __init__(self, tree: TreeTables, lm: NgramTables, prep: LookupTables,
                  cfg: BeamConfig, wmax: int, hroot: int, kbranch: int,
-                 bla: Optional[BigramTables] = None, rnn=None):
+                 bla: Optional[BigramTables] = None, rnn=None, mesh=None,
+                 beam_axis: Optional[str] = None):
         self.tree, self.lm, self.prep, self.cfg = tree, lm, prep, cfg
         self.rnn = rnn
         self.wmax, self.hroot, self.kbranch = wmax, hroot, kbranch
+        # the partitioned beam: this rank expands slots [my * K_loc, (my + 1)
+        # * K_loc) of the replicated carry, keeps its local top-K, and one
+        # all_gather per frame merges the P local beams
+        self.mesh, self.beam_axis = mesh, beam_axis
+        self.P = axis_size(mesh, beam_axis) if beam_axis is not None else 1
+        self.K_loc = cfg.max_hyps // self.P
+        assert self.K_loc * self.P == cfg.max_hyps, "max_hyps must divide the beam axis"
+        self.my = axis_index(mesh, beam_axis) if self.P > 1 else 0
         use_la = tree.has_lookahead and cfg.lookahead_scale != 0.0
         la_coeff = cfg.lm_scale * cfg.lookahead_scale
 
@@ -504,11 +524,15 @@ class _Step:
         G = tree.root_degree
         self.gcap = min(cfg.root_arc_limit or G, G)
         root_width = G + max(hroot - 1, 0) * self.gcap  # Wr
-        self.rsel = min(cfg.root_select, root_width) if cfg.root_select > 0 else 0  # R3
+        # R3 (root select rides the main recombination under partitioning)
+        self.rsel = min(cfg.root_select, root_width) if cfg.root_select > 0 and self.P == 1 else 0
         self.compact = cfg.branch_width > 0
         Wbr = cfg.branch_width if self.compact else kbranch * tree.branch_degree
-        cand_width = 3 * cfg.max_hyps + Wbr + (0 if self.rsel else root_width)
+        cand_width = 3 * self.K_loc + Wbr + (0 if self.rsel else root_width)
+        self.topn = min(cfg.max_hyps, cand_width)  # the local top-K
         E = cfg.expansion_limit
+        if E and self.P > 1:
+            E = max(E // self.P, 1)  # each slice's share of the expansion cap
         self.elimit = E if 0 < E < cand_width and not cfg.deferred_emission else 0
 
         # bigram lookahead: the class-conditioned correction, scaled once;
@@ -517,6 +541,9 @@ class _Step:
         corr_coeff = la_coeff * cfg.lookahead_corr_scale
         self.bla = bla if bla is not None and corr_coeff != 0.0 else None
         self.lazy = self.bla is not None and bla.deep and cfg.lookahead_update == "survivor"
+        if self.lazy and self.P > 1:
+            raise ValueError("lookahead_update='survivor' does not compose with beam "
+                             "partitioning (use the exact 'arc' updates there)")
         self.deep_arc = self.bla is not None and bla.deep and not self.lazy
         if self.bla is not None:
             self.corr = corr_coeff * bla.corr  # [C, N+1]
@@ -663,6 +690,12 @@ class _Step:
         B = c.state.shape[0]
         active = (t < n_frames)[:, None]
         state, lms, score, bp, phi = c.state, c.lms, c.score, c.bp, c.phi
+        rnn_row = c.rnn_row if rnn is not None else None
+        if self.P > 1:
+            mine = slice(self.my * self.K_loc, (self.my + 1) * self.K_loc)
+            state, lms, score, bp, phi = (x[:, mine] for x in (state, lms, score, bp, phi))
+            if rnn is not None:
+                rnn_row = rnn_row[:, mine]
         cls = bla.cls_of_lm[lms] if bla is not None else None  # history class
 
         def emis(cls):
@@ -685,7 +718,6 @@ class _Step:
 
         # ---- branch fan: top-Kb hyps at fan-out states (the RNN pool row
         # rides as the last payload column)
-        rnn_row = c.rnn_row if rnn is not None else None
         br_state, br_cls, p_br, br_dphi, br_hyp = self._branch_fan(
             state, score, [lms, bp] + ([phi] if bla is not None else [])
             + ([rnn_row] if rnn is not None else []), cls)
@@ -744,17 +776,20 @@ class _Step:
         else:
             cand_score = torch.clamp(cand_pre + emis(cand_cls), max=BIG)
 
-        # ---- acoustic beam (over the root-select survivors too)
+        # ---- acoustic beam (over the root-select survivors too; the global
+        # offset over the partitioned beam's slices)
         best = cand_score.min(dim=1, keepdim=True).values
         if self.rsel:
             best = torch.minimum(best, rs_score.min(dim=1, keepdim=True).values)
             rs_score = torch.where(rs_score > best + cfg.beam, BIG, rs_score)
+        if self.P > 1:
+            best = all_reduce(best, self.mesh, self.beam_axis, "min")
         cand_score = torch.where(cand_score > best + cfg.beam, BIG, cand_score)
 
         # ---- recombination + histogram top-K (the winner keeps its
         # applied correction)
         sel, n_score = self._recombine_topk(
-            cand_state * L + cand_lm, cand_score, min(K, cand_score.shape[1])
+            cand_state * L + cand_lm, cand_score, min(self.topn, cand_score.shape[1])
         )
         n_state = torch.where(n_score >= BIG / 2, SENT, cand_state.gather(1, sel))
         n_lm = cand_lm.gather(1, sel)
@@ -763,6 +798,9 @@ class _Step:
         # the winner of each key keeps its own RNN row: truncated-history
         # recombination (rnn_fusion.py)
         n_rnn = cand_x[-1].gather(1, sel) if rnn is not None else None
+        if self.P > 1:
+            n_state, n_lm, n_score, n_bp, n_phi, n_rnn = self._merge(
+                n_state, n_lm, n_score, n_bp, n_phi, n_rnn)
 
         # ---- word ends scan the beam plus the root-select survivors
         if self.rsel:
@@ -872,13 +910,15 @@ class _Step:
         f_bp = torch.cat([w_bp, rec_id], dim=1).gather(1, midx)
         if rnn is not None:
             f_rnn = torch.cat([w_rnn, new_rnn], dim=1).gather(1, midx)
-            rnn_row = torch.where(active, f_rnn, rnn_row)
+            rnn_row = torch.where(active, f_rnn, c.rnn_row)
 
-        # ---- freeze finished utterances, capture finals at their last frame
-        state = torch.where(active, f_state, state)
-        lms = torch.where(active, f_lm, lms)
-        score = torch.where(active, f_score, score)
-        bp = torch.where(active, f_bp, bp)
+        # ---- freeze finished utterances (the whole carry: a partitioned
+        # rank expanded a slice of it), capture finals at their last frame
+        state = torch.where(active, f_state, c.state)
+        lms = torch.where(active, f_lm, c.lms)
+        score = torch.where(active, f_score, c.score)
+        bp = torch.where(active, f_bp, c.bp)
+        phi = c.phi
         if bla is not None:
             if re_phi is None:
                 re_phi = torch.zeros_like(re_score)
@@ -903,6 +943,35 @@ class _Step:
         if rnn is None:
             return Carry(*core)
         return FusedCarry(*core, rnn_row, torch.where(is_last, rnn_row, c.f_rnnrow), c.cs, c.hs)
+
+    def _merge(self, n_state, n_lm, n_score, n_bp, n_phi, n_rnn):
+        """The partitioned beam's merge: every rank's deduplicated local
+        top-K gathered in one ``all_gather`` of int64 payload columns (the
+        key's state and LM state, the score's float32 bits, the
+        backpointer, the applied correction's bits under a bigram
+        lookahead, the RNN pool row under fusion), then a replicated
+        recombination and top-K (a hypothesis reached on two slices
+        recombines here)."""
+        def bits(x):
+            return x.view(torch.int32).to(torch.int64)
+
+        def floats(x):
+            return x.to(torch.int32).view(torch.float32)
+
+        cols = [n_state, n_lm, bits(n_score), n_bp]
+        if n_phi is not None:
+            cols.append(bits(n_phi))
+        if n_rnn is not None:
+            cols.append(n_rnn)
+        g = all_gather(torch.stack(cols, dim=-1), self.mesh, self.beam_axis, dim=1)
+        g_state, g_lm, g_score, g_bp = g[..., 0], g[..., 1], floats(g[..., 2]), g[..., 3]
+        sel, n_score = self._recombine_topk(g_state * self.L + g_lm, g_score,
+                                            self.cfg.max_hyps)
+        n_state = torch.where(n_score >= BIG / 2, self.tree.sentinel, g_state.gather(1, sel))
+        pick = [x.gather(1, sel) for x in (g_lm, g_bp)]
+        n_phi = floats(g[..., 4].gather(1, sel)) if n_phi is not None else None
+        n_rnn = g[..., -1].gather(1, sel) if n_rnn is not None else None
+        return n_state, pick[0], n_score, pick[1], n_phi, n_rnn
 
     def _rnn_word_ends(self, c: FusedCarry, r_srcrow, r_word, is_lm_word, r_lmcost, active,
                        pool_row: int):
@@ -1067,6 +1136,25 @@ def traceback(handle: DeviceDecode) -> torch.Tensor:
     return walk
 
 
+def assemble_decode(handle: DeviceDecode, mesh, B: int) -> DeviceDecode:
+    """A data-parallel decode's handle on every rank: each data rank's
+    share of the best hypotheses, records (each utterance keeps its own
+    ``[T, R]`` rows: record ids are per utterance) and final beams
+    gathered over ``data``, the first ``B`` utterances kept. The finals of
+    a fused decode come back without their state pools (no reader of an
+    assembled handle uses them)."""
+    def gather(x, dim=0):
+        return all_gather(x, mesh, "data", dim).narrow(dim, 0, B)
+
+    f = handle.finals
+    return DeviceDecode(
+        gather(handle.best_score), gather(handle.best_bp),
+        Records(*(gather(r, 1) for r in handle.records)),
+        Carry(*(gather(x) for x in tuple(f)[: len(Carry._fields)])),
+        gather(handle.end_cost), handle.word_end_limit, gather(handle.n_frames),
+        handle.num_final_states)
+
+
 @dataclasses.dataclass
 class DecodeResult:
     """Best-sentence output (ref: Speech::Recognizer's <recognized> data)."""
@@ -1142,23 +1230,52 @@ class TreeDecoder:
         handle without a host transfer; pair with
         :meth:`results_from_device`. Device-resident inputs are used in
         place."""
-        if mesh is not None or beam_axis is not None:
-            raise NotImplementedError("sharded / beam-partitioned decoding is not ported yet")
+        if beam_axis is not None and mesh is None:
+            raise ValueError("beam_axis requires a mesh")
         emissions = torch.as_tensor(emissions, dtype=torch.float32, device=self.device)
         n_frames = torch.as_tensor(n_frames, device=self.device).to(torch.int64)
+        if mesh is None:
+            return self._decode(emissions, n_frames)
+        rows = data_rows(mesh, emissions.shape[0])
+        return self.decode_shard_device(emissions[rows], n_frames[rows], mesh,
+                                        emissions.shape[0], beam_axis)
+
+    def decode_shard_device(self, emissions, n_frames, mesh, B: int,
+                            beam_axis: Optional[str] = None) -> DeviceDecode:
+        """The data-parallel decode from this rank's share of a batch of
+        ``B`` utterances (``parallel.mesh.data_rows``): the share, padded
+        with utterances of no frames to the common share and in time to
+        the longest share, is decoded with the beam partitioned over
+        ``beam_axis`` if given, and the handles assemble over ``data``:
+        every rank returns the whole batch's handle."""
+        e = torch.as_tensor(emissions, dtype=torch.float32, device=self.device)
+        nf = torch.as_tensor(n_frames, device=self.device).to(torch.int64)
+        per = -(-B // axis_size(mesh, "data"))
+        T = int(all_reduce(torch.tensor([e.shape[1]], device=self.device), mesh, "data",
+                           "max")[0])
+        e = torch.nn.functional.pad(e, (0, 0, 0, T - e.shape[1], 0, per - e.shape[0]))
+        nf = torch.nn.functional.pad(nf, (0, per - nf.shape[0]))
+        return assemble_decode(self._decode(e, nf, mesh, beam_axis), mesh, B)
+
+    def _decode(self, emissions: torch.Tensor, n_frames: torch.Tensor, mesh=None,
+                beam_axis: Optional[str] = None) -> DeviceDecode:
         B, T, _M = emissions.shape
         pool = self.cfg.word_end_limit * T if self.rnn is not None else 0
         carry, recs = _decode_block(
-            self._step(), init_carry(B, self.cfg, self.lm, self.device, self.rnn, pool),
-            emissions, 0, n_frames)
+            self._step(mesh, beam_axis),
+            init_carry(B, self.cfg, self.lm, self.device, self.rnn, pool), emissions, 0,
+            n_frames)
         return self._finalize(carry, [recs], n_frames)
 
-    def _step(self) -> _Step:
-        """The frame step over this decoder's tables and beam."""
+    def _step(self, mesh=None, beam_axis: Optional[str] = None) -> _Step:
+        """The frame step over this decoder's tables and beam. Over a beam
+        partitioned P ways the root and branch limits apply per slice of
+        K / P slots (the reference's rule: exact when they cover K)."""
         K = self.cfg.max_hyps
+        K_loc = K // axis_size(mesh, beam_axis) if beam_axis is not None else K
         return _Step(self.tables, self.lm, self.lm_prep, self.cfg, self.tree.max_word_ends,
-                     min(self.cfg.root_hyps, K), min(self.cfg.branch_hyps or K, K), self.bla,
-                     self.rnn)
+                     min(self.cfg.root_hyps, K_loc), min(self.cfg.branch_hyps or K, K_loc),
+                     self.bla, self.rnn, mesh, beam_axis)
 
     def _finalize(self, c: Carry, blocks: Sequence[Records], n_frames: torch.Tensor,
                   live: Optional[torch.Tensor] = None) -> DeviceDecode:
@@ -1186,7 +1303,11 @@ class TreeDecoder:
     ) -> List[DecodeResult]:
         """Walk a decode's best paths on the device and assemble results
         from the one payload read to the host (:func:`traceback`)."""
-        payload = traceback(handle).cpu().numpy()
+        return self.results_from_walk(traceback(handle).cpu().numpy(), names)
+
+    def results_from_walk(self, payload: np.ndarray,
+                          names: Optional[Sequence[str]] = None) -> List[DecodeResult]:
+        """Results from a :func:`traceback` payload on the host."""
         walk = payload[:-1]  # [MAXW, B, 3] (lemma, frame, record id), end-first
         best_score = payload[-1, :, 0].view(np.float32)
         chain = (walk[:, :, 2] >= 0).sum(axis=0)  # each chain's rows lead the walk

@@ -699,6 +699,68 @@ def test_tool_runs_on_the_card(card, tmp_path):
                                        rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.cuda
+def test_one_card_world_over_nccl(card, tmp_path):
+    """A world of one rank over NCCL on the card: the TP scorer through the
+    GMM kernel equals the plain scorer's kernel call, the DP statistics
+    equal one accumulation, the beam over a one-rank axis and the DP
+    decode equal the decode, and the time-sharded frontend (the MFCC
+    kernel) equals the dense one; every collective runs on the card."""
+    import torch.distributed as dist
+
+    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
+    from rasr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from rasr_tpu_torch.parallel.sequence import SpFrontend
+    from rasr_tpu_torch.parallel.sharded import ShardedGmmScorer, dp_accumulate
+    from rasr_tpu_torch.train.em import GmmAccumulator, accumulate
+
+    beam = BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=64, branch_hyps=64, lm_scale=10.0)
+    s = build_setup(num_words=200, num_classes=200, densities=2, beam=beam, device=card)
+    x = torch.from_numpy((np.random.default_rng(4).normal(size=(4, 32000)) * 0.1)
+                         .astype(np.float32)).to(card)
+    lengths = torch.full((4,), 32000, device=card)
+    init_distributed("nccl", "file://" + str(tmp_path / "store"), 0, 1)
+    try:
+        mesh = make_mesh(1, 1, device=card)
+        feats, n = s.frontend(x, lengths)
+        for mode in (True, False):
+            want = GmmFeatureScorer(s.mixtures, scale=s.scorer.scale, max_approx=mode,
+                                    device=card)(feats)
+            got = ShardedGmmScorer(s.mixtures, mesh, scale=s.scorer.scale, max_approx=mode)(feats)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        flat = feats.reshape(-1, feats.shape[-1])
+        labels = np.random.default_rng(5).integers(0, 200, size=flat.shape[0])
+        stats = dp_accumulate(mesh, s.mixtures, flat, labels)
+        acc = accumulate(GmmAccumulator.zeros(*s.mixtures.means.shape), s.mixtures, flat, labels)
+        for got, want in zip(stats, (acc.count, acc.sum, acc.sumsq)):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        e = s.scorer(feats)
+        want = [(r.words, r.score) for r in s.decoder.decode_scores(e, n)]
+        for kw in (dict(mesh=mesh), dict(mesh=mesh, beam_axis="model")):
+            assert [(r.words, r.score) for r in s.decoder.decode_scores(e, n, **kw)] == want
+        chunk, n_sp = SpFrontend(s.frontend, mesh)(x, lengths)
+        assert torch.equal(n_sp, n)
+        torch.testing.assert_close(chunk, feats, rtol=1e-3, atol=1e-3)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_the_card_over_gloo(card):
+    """``python -m rasr_tpu_torch.parallel.dryrun --ranks 2 --backend gloo``:
+    both ranks on the card (NCCL takes no two ranks of one communicator on
+    one device); the sharded step equals the unsharded one on each."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "rasr_tpu_torch.parallel.dryrun", "--ranks", "2", "--backend",
+         "gloo"], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [line for line in proc.stdout.splitlines() if "sharded == unsharded" in line]
+    assert len(lines) == 2 and all("cuda:0" in line for line in lines), proc.stdout
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """No card: exit non-zero and print no result. Alone in a directory
     (no port beside it): the same, card or not."""

@@ -751,8 +751,9 @@ def test_unported_decoder_features_raise(slice_c_systems, oracle_setup):
     """A bigram lookahead decodes and equals the JAX decoder (also from the
     JAX decoder's own tables, carried across); so does a lookahead with
     junction re-entries (general WFST networks: tests/test_torch_wfst.py),
-    which raised before it was ported. Beam partitioning is not ported and
-    raises (RNN fusion is ported: tests/test_torch_rnn_fusion.py)."""
+    which raised before it was ported. Beam partitioning is ported
+    (tests/test_torch_parallel_decode.py); without a mesh its axis raises,
+    as the reference asserts (RNN fusion: tests/test_torch_rnn_fusion.py)."""
     lm, (jtree, ttree), las = slice_c_systems["within"]
     _assert_port_equals_jax(jtree, ttree, lm, 20011, _RSEL, 301, las["word-set"])
     jtables = jdec.bigram_to_device(las["word-set"][0], jtree)
@@ -772,5 +773,5 @@ def test_unported_decoder_features_raise(slice_c_systems, oracle_setup):
         assert a.words == b.words
         np.testing.assert_allclose(a.score, b.score, rtol=1e-4)
     dec = TreeDecoder(tree, compile_ngram(lm), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="beam_axis requires a mesh"):
         dec.decode_scores(np.zeros((1, 2, 3), np.float32), [2], beam_axis="model")

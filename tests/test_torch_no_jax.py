@@ -25,8 +25,10 @@ which it imports by string), the packed LM through the native parser and
 its images, a class LM, and the profiling helper; ``jax``, ``flax``,
 ``optax`` and ``msgpack`` are unimportable there too. A tool started as
 ``python -m rasr_tpu_torch.tools.<tool>`` without a ``device`` fails where
-no card is visible. The port carries its own copies of the host modules,
-so it loads no module of ``rasr_tpu``.
+no card is visible. A seventh runs the parallel layer over a one-rank
+gloo world. The port carries its own copies of the host modules, so it
+loads no module of ``rasr_tpu``; neither the port, nor ``chip_smoke.py``,
+nor the rank scripts the parallel tests spawn import JAX.
 """
 
 import ast
@@ -428,6 +430,62 @@ print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu
 """
 
 
+PARALLEL_SCRIPT = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["rasr_tpu"] = None
+import numpy as np, torch
+from rasr_tpu_torch.examples import beam_sweep, streaming_demo
+from rasr_tpu_torch.models.gmm import MixtureSet
+from rasr_tpu_torch.ops.frontend import FeatureFrontend
+from rasr_tpu_torch.parallel import mesh as pm
+from rasr_tpu_torch.parallel.dryrun import dryrun_multichip
+from rasr_tpu_torch.parallel.sequence import SpFrontend, sp_viterbi_align
+from rasr_tpu_torch.parallel.sharded import ShardedGmmScorer, dp_accumulate, psum_counters
+from rasr_tpu_torch.parallel.workqueue import CorpusWorkQueue
+from rasr_tpu_torch.search.decoder import BeamConfig
+from rasr_tpu_torch.synthetic import build_setup
+tmp = tempfile.mkdtemp()
+pm.init_distributed("gloo", f"file://{tmp}/store", 0, 1)
+assert dryrun_multichip(1, device="cpu")["count"].sum() == 24
+mesh = pm.make_mesh(1, 1, device="cpu")
+rng = np.random.default_rng(0)
+ms = MixtureSet.single_density(rng.normal(size=(5, 3)).astype(np.float32),
+                               np.ones((5, 3), np.float32))
+x = rng.normal(size=(2, 4, 3)).astype(np.float32)
+assert ShardedGmmScorer(ms, mesh)(x).shape == (2, 4, 5)
+assert dp_accumulate(mesh, ms, x.reshape(8, 3), np.zeros(8, np.int64))[0].sum() == 8
+assert psum_counters(mesh, np.ones((1, 2))).tolist() == [1.0, 1.0]
+beam = BeamConfig(max_hyps=32, word_end_limit=8, root_hyps=32, branch_hyps=32, lm_scale=10.0)
+s = build_setup(num_words=30, num_phones=8, num_classes=50, densities=2, beam=beam, device="cpu")
+samples = torch.from_numpy((rng.normal(size=(2, 8000)) * 0.1).astype(np.float32))
+chunk, n = SpFrontend(s.frontend, mesh)(samples, torch.tensor([8000, 6000]))
+feats, n2 = s.frontend(samples, torch.tensor([8000, 6000]))
+assert torch.allclose(chunk, feats, atol=2e-4) and torch.equal(n, n2)
+e = s.scorer(feats)
+want = s.decoder.decode_scores(e, n)
+got = s.decoder.decode_scores(e, n, mesh=mesh, beam_axis="model")
+assert [r.words for r in got] == [r.words for r in want]
+best, states = sp_viterbi_align(mesh, e[:, :, :6], *np.ones((5, 6), np.float32), n)
+assert states.shape == (2, e.shape[1])
+assert CorpusWorkQueue.__name__ and streaming_demo.run and beam_sweep.run
+torch.distributed.destroy_process_group()
+print("LOADED", " ".join(sorted(m for m in sys.modules if m.startswith("rasr_tpu."))))
+"""
+
+
+def test_parallel_layer_runs_without_jax():
+    """The parallel layer over a one-rank gloo world: the dry run, the TP
+    scorer, DP statistics and counters, the time-sharded frontend and
+    alignment, the data-parallel and partitioned-beam decode."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = [l for l in proc.stdout.splitlines() if l.startswith("LOADED")]
+    assert line.split()[1:] == [], line
+
+
 def test_tools_and_the_lm_path_run_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=REPO, env=env,
@@ -479,7 +537,10 @@ FORBIDDEN = ("jax", "flax", "optax", "msgpack", "rasr_tpu")
 
 
 def test_no_source_imports_jax():
-    files = sorted((REPO / "rasr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the port, the card's script and the rank scripts the tests spawn
+    files = sorted((REPO / "rasr_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_ranks.py",
+        REPO / "tests" / "torch_multiprocess_worker.py"]
     assert len(files) > 10
     for new in ("ops/dsp.py", "ops/gammatone.py", "train/vtln.py", "fsa/automaton.py",
                 "fsa/algorithms.py", "models/lm/grammar.py", "search/wfst.py",
@@ -490,7 +551,9 @@ def test_no_source_imports_jax():
                 "tools/acoustic_model_trainer.py", "tools/nn_trainer.py", "tools/lm_util.py",
                 "tools/flf_tool.py", "tools/lattice_processor.py", "tools/corpus_statistics.py",
                 "tools/archiver.py", "tools/fsa_tool.py", "tools/log_analysis.py",
-                "tools/doc_gen.py", "examples/toy_recipe.py"):
+                "tools/doc_gen.py", "examples/toy_recipe.py", "parallel/mesh.py",
+                "parallel/sharded.py", "parallel/sequence.py", "parallel/workqueue.py",
+                "parallel/dryrun.py", "examples/streaming_demo.py", "examples/beam_sweep.py"):
         assert REPO / "rasr_tpu_torch" / new in files, new
     strings = 0
     for path in files:

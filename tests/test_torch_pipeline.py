@@ -266,12 +266,24 @@ def test_archives_interoperate(tmp_path, writer):
         assert "gone" not in ar and ar.read("x") == b"second" * 100
 
 
-def test_unported_recognizer_branches_raise(toy):
-    """The sharded decode is not ported and raises (n-best lists are
-    ported: test_recognizer_nbest_matches_jax)."""
-    for kw in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            _recognizer(toy, **kw)
+def test_unported_recognizer_branches_raise(toy, jax_run, tmp_path):
+    """The sharded decode (``mesh``), which raised before it was ported,
+    over a one-rank gloo world's (1, 1) mesh: the data-parallel path
+    (features, scores and the decode of the rank's share, the assembled
+    handle, rank 0's archive and CTM) equals the JAX recognizer's run.
+    The multi-rank runs: tests/test_torch_parallel_decode.py and the card's
+    ``parallel`` phase."""
+    import torch.distributed as dist
+
+    from rasr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed("gloo", "file://" + str(tmp_path / "store"), 0, 1)
+    try:
+        visitor = CorpusVisitor(CorpusDescription.load(toy["path"]), batch_size=2)
+        got = _run(_recognizer, toy, "port-mesh", visitor, mesh=make_mesh(1, 1, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    _assert_runs_equal(got, jax_run)
 
 
 def _nbest_lines(path):

@@ -7,7 +7,7 @@ equals the brute force over word sequences (scored by alignment +
 lm_scale * ngram + weight * rnn) and the JAX decoder; fusion changes the
 answer; streamed blocks with the pool compaction equal the offline decode
 and keep the pool at 2K + R x Tb rows; fusion composes with the bigram
-lookahead. Beam partitioning is not ported and raises. A production-beam
+lookahead. Beam partitioning: tests/test_torch_parallel_decode.py. A production-beam
 case (root select, deferred emission, compact branch slots, binding K, R,
 H and Kb) holds every frame's records and the final beams to the JAX
 decoder's on the decoder tests' tie-free system. Tolerances: float32 math
@@ -270,10 +270,11 @@ def test_fusion_composes_with_bigram_lookahead(systems, rng):
 
 
 def test_beam_partitioning_with_fusion_raises(systems):
-    """The reference also runs fusion under beam partitioning; the port's
-    sharded decode is not ported (ROADMAP Queue 1 item 11) and raises."""
+    """Fusion under beam partitioning is ported and equals the JAX decoder
+    (tests/test_torch_parallel_decode.py, over a gloo world); without a mesh
+    the beam axis raises, as the reference asserts."""
     dec = _decoders(systems, _cfg(max_hyps=64, word_end_limit=16, root_hyps=64))[1]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="beam_axis requires a mesh"):
         dec.decode_scores(np.zeros((1, 2, systems["tying"].num_classes), np.float32), [2],
                           beam_axis="model")
 

@@ -73,6 +73,39 @@ def test_viterbi_matches_jax(case):
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
 
 
+@pytest.mark.parametrize("case", CASES[:2] + CASES[-2:],
+                         ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_viterbi_forward_without_backpointers(case):
+    """``return_backpointers=False``: the best cost and final state of the
+    JAX function's and of the port's ``True`` call, and backpointers of
+    the reference's ``False`` shape, all zero, stored nowhere (a broadcast
+    view)."""
+    arrays = _instance(**case)
+    jb, jf, jbp = jv.viterbi_forward(*_jax(arrays), return_backpointers=False)
+    tb, tf, tbp = tv.viterbi_forward(*_torch(arrays), return_backpointers=False)
+    tb1, tf1, _ = tv.viterbi_forward(*_torch(arrays))
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=VIT_RTOL)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    assert torch.equal(tb, tb1) and torch.equal(tf, tf1)
+    assert tbp.shape == jbp.shape and tbp.dtype == torch.int8
+    assert not np.asarray(jbp).any() and not tbp.any()
+    assert tbp.untyped_storage().nbytes() == 1
+
+
+def test_viterbi_shared_costs_match_jax():
+    """Costs shared by the batch, ``[S]`` as ``tests/test_sequence_parallel.py``
+    passes them (the port stacked them as if they were ``[B, S]``: with
+    B = 3 the loop, forward and skip rows went to utterances 0, 1, 2)."""
+    from tests.test_sequence_parallel import _random_hmm
+
+    arrays = _random_hmm(np.random.default_rng(12345), 3, 37, 9) + (
+        np.array([37, 25, 11], np.int32),)
+    jb, js = jv.viterbi_align(*_jax(arrays))
+    tb, ts = tv.viterbi_align(*_torch(arrays))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=VIT_RTOL)
+
+
 def test_viterbi_ties_break_as_jax():
     """Equal candidates everywhere: argmin takes the first of
     [loop, fwd, skip] in both packages."""
