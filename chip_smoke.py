@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``rasr_tpu_torch/csrc/`` and
-holds each against its plain PyTorch version at its path's shapes and at
-ragged ones. Then it drives every path of the port, each with the launch
-counters set to 0 just before it and read just after:
+Builds the hand-written CUDA kernels from ``rasr_tpu_torch/csrc/``,
+prints each kernel's ptxas registers and spills and its ``HGMMA`` /
+``UTMALDG`` / ``HMMA`` counts (``cuobjdump -sass``), failing if the GMM
+or MFCC kernel spills, lacks ``wgmma`` or TMA, or keeps ``mma.sync``,
+and holds each kernel against its plain PyTorch version at its path's
+shapes and at ragged ones (timing GMM's LSE variant and D = 51 and MFCC
+with 40 bands and with the energy column beside the main shapes). Then
+it drives every path of the port, each with the launch counters set to
+0 just before it and read just after:
 
 - the word-end and row-gather microbenches
   (``rasr_tpu_torch.examples.wordend_microbench`` / ``gather_microbench``),
@@ -77,7 +82,8 @@ counters set to 0 just before it and read just after:
   over 300 frames, deltas of order 2 and VTLN at 0.92 (51 dimensions),
   scored by the bench GMMs drawn at 51 dimensions and decoded under the
   production beam; the MFCC kernel against its plain version on those
-  operands; card == CPU features and decode on B=2 x 3 s; the gammatone
+  operands; card == CPU features and decode on B=2 x 3 s, and their gap
+  stage by stage (cepstra, sliding CMVN, deltas); the gammatone
   frontend on the batch, timed beside its bound, card == CPU on B=2 x 3 s;
   the VTLN grid search over the seven default factors on 8 utterances
   with the align-em path's EM model, card == CPU;
@@ -1061,7 +1067,8 @@ def frontend_ext_phase(s, dev, samples, lengths, em_model, graphs, say, reset_co
     from rasr_tpu_torch.models.lm.ngram import compile_ngram
     from rasr_tpu_torch.models.scorer import GmmFeatureScorer
     from rasr_tpu_torch.ops.frontend import (
-        FeatureFrontend, FrontendConfig, frame_signal, num_frames, preemphasize,
+        FeatureFrontend, FrontendConfig, deltas, edge_fill, frame_signal, mfcc_from_frames,
+        num_frames, preemphasize, sliding_cmvn,
     )
     from rasr_tpu_torch.ops.gammatone import (
         GammatoneConfig, GammatoneFrontend, piecewise_linear_warp,
@@ -1137,7 +1144,8 @@ def frontend_ext_phase(s, dev, samples, lengths, em_model, graphs, say, reset_co
     small = int(3.0 * 16000)
     x2, n2 = samples[:2, :small], torch.full((2,), small, device=dev)
     f2, nf2 = fe(x2, n2)
-    f2c, _ = FeatureFrontend(cfg, device="cpu", **kw)(x2.cpu(), n2.cpu())
+    fe_cpu = FeatureFrontend(cfg, device="cpu", **kw)
+    f2c, _ = fe_cpu(x2.cpu(), n2.cpu())
     feat_err = check_close("frontend-ext features cuda vs cpu", f2.cpu(), f2c, FEAT_EXT_RTOL,
                            FEAT_EXT_ATOL)
     e2 = s51.scorer(f2)
@@ -1150,6 +1158,32 @@ def frontend_ext_phase(s, dev, samples, lengths, em_model, graphs, say, reset_co
     say(f"frontend-ext card vs cpu on B=2 x 3 s: features max abs err {feat_err:.3e} "
         f"(tolerance {FEAT_EXT_ATOL} + {FEAT_EXT_RTOL} x value), decode equal: "
         f"{[r.orth[:40] for r in a]}")
+
+    # where the card's features part from the CPU's: the cepstra with the
+    # energy column, after sliding CMVN, after deltas; the card's stages on
+    # the kernel's cepstra, the CPU's stages on them, and the card's stages
+    # on its plain version's (cuBLAS) cepstra, each against the CPU
+    T2 = num_frames(small, cfg)
+    fr2 = frame_signal(preemphasize(x2, cfg.preemphasis), T2, cfg)
+
+    def stages(c):
+        m_ = torch.ones(c.shape[:2], device=c.device)
+        n_ = torch.full((c.shape[0],), T2, device=c.device)
+        cm = sliding_cmvn(c, m_, cfg.norm_window, cfg.norm_variance)
+        return c, cm, deltas(edge_fill(cm, n_), 2, n_frames=n_)
+
+    ref = stages(mfcc_from_frames(fr2.cpu(), fe_cpu.params, cfg))
+    kern = mfcc_frames(fr2, fe.cosw, fe.sinw, fe.kmel, fe.kdct, cfg.log_floor, fe.basis)
+    plain = mfcc_frames_plain(fr2, fe.cosw, fe.sinw, fe.kmel, fe.kdct, cfg.log_floor)
+    for label, got in (("kernel cepstra, card stages", stages(kern)),
+                       ("kernel cepstra, cpu stages", stages(kern.cpu())),
+                       ("plain cepstra, card stages", stages(plain))):
+        errs = [(g.cpu() - r).abs() for g, r in zip(got, ref)]
+        at = ref[1].abs().flatten()[errs[1].argmax()]
+        say(f"frontend-ext gap ({label}) vs cpu: cepstra {errs[0].max():.3e} (energy column "
+            f"{errs[0][..., -1].max():.3e}), after sliding CMVN {errs[1].max():.3e} (energy "
+            f"{errs[1][..., -1].max():.3e}; the largest where |value| is {at:.3g}), after "
+            f"deltas {errs[2].max():.3e}")
 
     # the gammatone frontend on the bench batch (no kernel: cuDNN
     # convolutions in float32); its device time beside its bound
@@ -2039,7 +2073,7 @@ def main() -> int:
     )
     from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain
     from rasr_tpu_torch.ops.kernels.mfcc import (
-        folded_bases, mfcc_frames, mfcc_frames_plain, pack_basis,
+        folded_bases, mfcc_frames, mfcc_frames_plain, pack_basis, with_energy,
     )
     from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain
     from rasr_tpu_torch.ops.kernels.wordend import WORD_NONE, wordend_block, wordend_block_plain
@@ -2079,9 +2113,26 @@ def main() -> int:
         raise AssertionError(f"the native host library did not load: {native.build_error}")
     say(f"native host library {native.library_path().name}: {time.time() - t0:.2f} s (g++ "
         f"of native/arpa.cc and native/rtar.cc)")
-    for line in _build.build_log.splitlines():  # ptxas: registers, spills, shared memory
-        if any(k in line for k in ("Compiling entry", "spill", "registers")):
-            say("ptxas " + line.split(":", 1)[-1].strip())
+    # each kernel as built: ptxas' registers and spills, and its SASS
+    # (cuobjdump): the GMM and MFCC kernels run wgmma (HGMMA) fed by TMA
+    # (UTMALDG), spill nothing and keep no mma.sync (HMMA)
+    report, sass = _build.ptxas_report(), _build.sass_counts()
+    for name in sorted(set(report) | set(sass)):
+        r, ops = report.get(name, {}), sass.get(name, {})
+        say(f"{name}: ptxas {r.get('registers')} registers, spill stores / loads "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes; SASS "
+            + ", ".join(f"{op} {ops.get(op, 0)}" for op in _build.SASS_OPS))
+    for base, needs in (("gmm_scores_kernel", ("HGMMA", "UTMALDG")),
+                        ("mfcc_frames_kernel", ("HGMMA", "UTMALDG"))):
+        mine = [name for name in sass if name.split("<")[0] == base]
+        if not mine:
+            raise AssertionError(f"{base} is not in the built library")
+        for name in mine:
+            r = report.get(name)
+            if r is None or r["spill_stores"] or r["spill_loads"]:
+                raise AssertionError(f"{name}: ptxas spills or reported nothing: {r}")
+            if any(sass[name][op] == 0 for op in needs) or sass[name]["HMMA"]:
+                raise AssertionError(f"{name}: SASS {sass[name]}, want {needs} and no HMMA")
 
     # ------------------------------------------------------------ setup
     t0 = time.time()
@@ -2098,7 +2149,7 @@ def main() -> int:
     # ------------------------------------------- kernel phase: GMM scoring
     st = s.scorer.tensors
     feats = torch.from_numpy(rng.normal(size=(N, st.dim)).astype(np.float32)).to(dev)
-    def ragged_case(N_, M_, K_, D_):
+    def ragged_case(N_, M_, K_, D_, rng=rng):
         """Frames and mixtures off their tiles, K_ with padding densities."""
         ms = MixtureSet(
             means=rng.normal(size=(M_, K_, D_)).astype(np.float32),
@@ -2134,12 +2185,25 @@ def main() -> int:
     gmm_lib_ms = cuda_ms(lambda: torch.matmul(xx, ab), 3)  # the bare density product
     del xx, ab
     M_, K_, D_ = st.num_mixtures, st.max_densities, st.dim
+    # shapes beside the main path's: its frames through the LSE variant, and
+    # the frontend-ext model's depth (D = 51: P = 128, three ring stages),
+    # drawn from a generator of its own so that the later phases' draws
+    # stay those of the script before these shapes were timed
+    gmm_lse_ms = cuda_ms(lambda: gmm_scores(feats, st, False), 5)
+    x51, st51 = ragged_case(N, M_, K_, 51, np.random.default_rng(51))  # own draws
+    gmm_err = max(gmm_err, check_close(
+        f"gmm N={N} M={M_} K={K_} D=51", gmm_scores(x51, st51, True),
+        gmm_scores_plain(x51, st51, True), GMM_RTOL, GMM_ATOL))
+    gmm_d51_ms = cuda_ms(lambda: gmm_scores(x51, st51, True), 5)
+    del x51, st51
     gmm_flop, gmm_bytes = 4.0 * N * D_ * M_ * K_, 4.0 * (N * D_ + (2 * D_ + 1) * M_ * K_ + N * M_)
     gmm_bound = bound(0.0, gmm_bytes, gmm_flop)
     say(f"gmm_scores N={N} M={M_} K={K_} D={D_}: kernel {gmm_ms:.3f} ms, plain "
         f"{gmm_plain_ms:.3f} ms, matmul([x^2|x], [a;b]) {gmm_lib_ms:.3f} ms, bound "
         f"{gmm_bound[0]:.3f} ms ({gmm_bound[1]}, 3xTF32; on the fp32 pipes "
         f"{bound(gmm_flop, gmm_bytes)[0]:.3f} ms), max abs err {gmm_err:.3e}")
+    say(f"gmm_scores N={N}: LSE variant {gmm_lse_ms:.3f} ms; the frontend-ext model's D=51 "
+        f"(M={M_}, K={K_}, min) {gmm_d51_ms:.3f} ms")
     del feats
 
     # ------------------------------------------------ kernel phase: MFCC
@@ -2149,11 +2213,14 @@ def main() -> int:
     mfcc_err = 0.0
     # the main path's frames; 3 utterances of 37 frames (one tile crosses two
     # utterance boundaries), with a near-silent stretch; 8 kHz frames (L = 200);
-    # 40 mel bands (two band groups)
+    # 40 mel bands; a 400-point FFT (201 bins: passes of 8 bins past the
+    # last 64), drawn from its own generator so the later phases' draws stay
     cases = [(cfg, frames)]
-    for cfg_, B_, S_ in ((cfg, 3, 6160), (FrontendConfig(sample_rate=8000), 3, 3000),
-                         (FrontendConfig(num_mel=40), 2, 4321)):
-        sig = torch.from_numpy((rng.normal(size=(B_, S_)) * 0.1).astype(np.float32)).to(dev)
+    for cfg_, B_, S_, gen in ((cfg, 3, 6160, rng),
+                              (FrontendConfig(sample_rate=8000), 3, 3000, rng),
+                              (FrontendConfig(num_mel=40), 2, 4321, rng),
+                              (FrontendConfig(fft_size=400), 2, 4321, np.random.default_rng(400))):
+        sig = torch.from_numpy((gen.normal(size=(B_, S_)) * 0.1).astype(np.float32)).to(dev)
         sig[:, : S_ // 3] *= 0.01
         cases.append((cfg_, frame_signal(preemphasize(sig, cfg_.preemphasis),
                                          num_frames(S_, cfg_), cfg_)))
@@ -2174,6 +2241,17 @@ def main() -> int:
     mfcc_plain_ms = cuda_ms(lambda: mfcc_frames_plain(*args), 10)
     cs = torch.cat([cosw, sinw], 1)
     mfcc_lib_ms = cuda_ms(lambda: torch.matmul(frames, cs), 10)  # the DFT product alone
+    mfcc_shape_ms = {}
+    for label, cfg_ in (("40 mel bands", FrontendConfig(num_mel=40)),
+                        ("the energy column", FrontendConfig(append_energy=True))):
+        p_ = make_params(cfg_, dev)
+        mel_ops = with_energy(p_.mel, p_.dct) if cfg_.append_energy else (p_.mel, p_.dct)
+        args_ = (frames, *folded_bases(p_), *mel_ops, cfg_.log_floor)
+        basis_ = pack_basis(*folded_bases(p_))
+        mfcc_err = max(mfcc_err, check_close(
+            f"mfcc {tuple(frames.shape)} with {label}", mfcc_frames(*args_, basis_),
+            mfcc_frames_plain(*args_), MFCC_RTOL, MFCC_ATOL))
+        mfcc_shape_ms[label] = cuda_ms(lambda: mfcc_frames(*args_, basis_), 10)
     L_, bins_ = cosw.shape
     mel_, ceps_ = p.dct.shape
     dft_flop, rest_flop = N * 4.0 * L_ * bins_, N * (2.0 * bins_ * mel_ + 2.0 * mel_ * ceps_)
@@ -2184,6 +2262,8 @@ def main() -> int:
         f"matmul(frames, [cosw|sinw]) {mfcc_lib_ms:.3f} ms, bound {mfcc_bound[0]:.4f} ms "
         f"({mfcc_bound[1]}, 3xTF32 DFT; on the fp32 pipes "
         f"{bound(dft_flop + rest_flop, mfcc_bytes)[0]:.4f} ms), max abs err {mfcc_err:.3e}")
+    say(f"mfcc_frames N={N}: " + "; ".join(f"with {k} {v:.3f} ms" for k, v in
+                                          mfcc_shape_ms.items()))
     del frames, got, cases
 
     # ------------------- kernel phase: word-end block and row gather, ragged
@@ -2638,13 +2718,14 @@ def main() -> int:
          "launches": launches["gmm_scores"], "launches_by_path": paths_of("gmm_scores"),
          "max_abs_err": gmm_err,
          "ms": gmm_ms, "plain_ms": gmm_plain_ms, "bound_ms": gmm_bound[0],
-         "bound_by": gmm_bound[1], "library_ms": gmm_lib_ms},
+         "bound_by": gmm_bound[1], "library_ms": gmm_lib_ms,
+         "shapes_ms": {"LSE": gmm_lse_ms, "D=51": gmm_d51_ms}},
         {"name": "mfcc_frames", "route": "cuda", "source": "rasr_tpu_torch/csrc/mfcc_fused.cu",
          "replaces": "rasr_tpu/ops/pallas/frontend_kernel.py:50",
          "launches": launches["mfcc_frames"], "launches_by_path": paths_of("mfcc_frames"),
          "max_abs_err": max(mfcc_err, ext_err),
          "ms": mfcc_ms, "plain_ms": mfcc_plain_ms, "bound_ms": mfcc_bound[0],
-         "bound_by": mfcc_bound[1], "library_ms": mfcc_lib_ms},
+         "bound_by": mfcc_bound[1], "library_ms": mfcc_lib_ms, "shapes_ms": mfcc_shape_ms},
         {"name": "wordend_block", "route": "cuda",
          "source": "rasr_tpu_torch/csrc/wordend_fused.cu",
          "replaces": "examples/pallas_wordend_microbench.py:81",

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -96,10 +97,14 @@ def _nvcc_run(cmd) -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` (one nvcc per file, all at once) and link the
-    shared library, unless it exists."""
+    shared library, unless it exists. nvcc's report is kept beside it
+    (``.ptxas.txt``) and read into :data:`build_log`."""
     global build_log
     out = library_path()
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
+        if report.exists():
+            build_log = report.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, srcs = _nvcc(), _sources()
@@ -109,8 +114,10 @@ def build() -> Path:
         with ThreadPoolExecutor(len(srcs)) as pool:
             logs = list(pool.map(_nvcc_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                                              for src, obj in zip(srcs, objs)]))
-        logs.append(_nvcc_run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]))
+        logs.append(_nvcc_run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs),
+                               "-ldl"]))
         build_log = "".join(logs)
+        report.write_text(build_log)
         os.replace(tmp, out)
     finally:
         for path in [*objs, tmp]:
@@ -130,6 +137,67 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's source name and template arguments from its mangled
+    name (``gmm_scores_kernel<1,0>``, ``row_gather_kernel<int4>``)."""
+    for m in re.finditer(r"_kernel", mangled):
+        for n in range(8, m.end()):  # the shortest length-prefixed identifier
+            ident = mangled[m.end() - n:m.end()]
+            if ident[0].isalpha() and mangled[:m.end() - n].endswith(str(n)):
+                tail = mangled[m.end():]
+                args = re.findall(r"Lb([01])E", tail)
+                if not args and tail.startswith("I"):
+                    args = [re.sub(r"^\d+", "", tail[1:tail.index("E")])]
+                    args = ["int" if a == "i" else a for a in args]
+                return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_report() -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from
+    ptxas' report of the last build (:data:`build_log`)."""
+    report, cur = {}, None
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = kernel_name(entry.group(1))
+            report[cur] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                report[cur]["spill_stores"], report[cur]["spill_loads"] = map(int, spill.groups())
+            if regs:
+                report[cur]["registers"] = int(regs.group(1))
+    return report
+
+
+#: the SASS instructions :func:`sass_counts` counts: Hopper's warpgroup
+#: products (wgmma), TMA tensor loads, and Ampere's warp products (mma.sync)
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(path: Optional[Path] = None) -> dict:
+    """``{kernel: {op: count}}`` of the built library's kernels for the
+    :data:`SASS_OPS`, read with the toolkit's ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    proc = subprocess.run([cuobjdump, "-sass", str(path or build())], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {proc.stderr}")
+    counts, cur = {}, None
+    for line in proc.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            cur = kernel_name(fn.group(1))
+            counts[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    return counts
 
 
 def check(code: int, name: str) -> None:

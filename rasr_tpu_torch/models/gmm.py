@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops.kernels.tf32 import tf32_split
 
 LOG_2PI = math.log(2.0 * math.pi)
 PAD_SCORE = 1e30  # -log score of padding densities (never wins)
@@ -111,37 +112,33 @@ class MixtureSet:
         )
 
 
-#: the fused kernel's mixture tile and depth chunk (``csrc/gmm_fused.cu``)
-TILE_M, DEPTH_CHUNK = 64, 32
+#: the fused kernel's depth chunk: one TMA box row (``csrc/gmm_fused.cu``)
+DEPTH_CHUNK = 32
 
 
 def operand_shape(D: int, M: int, K: int):
-    """Shape of :func:`pack_operand`'s result: ``(T, K, P/8, 8, 8, 4, 2)``
-    for depth ``P = round_up(2 D, 32)`` and ``T`` tiles of 64 mixtures."""
-    P = -(-2 * D // DEPTH_CHUNK) * DEPTH_CHUNK
-    return (-(-M // TILE_M), K, P // 8, TILE_M // 8, 8, 4, 2)
+    """Shape of :func:`pack_operand`'s result: ``(2, K, M, P)`` for depth
+    ``P = round_up(2 D, 32)``."""
+    return (2, K, M, -(-2 * D // DEPTH_CHUNK) * DEPTH_CHUNK)
 
 
 def pack_operand(a: torch.Tensor, b: torch.Tensor, M: int, K: int) -> torch.Tensor:
     """The fused kernel's B operand, laid out once: ``[a; b]`` of every
-    density in the order in which the tensor cores' ``m16n8k8`` fragments
-    take it.
+    density, K-major (the depth contiguous) as TF32 ``wgmma`` takes it,
+    split into TF32 hi and lo planes.
 
-    Depth ``P = round_up(2 D, 32)`` (rows ``[0, D)`` hold a, ``[D, 2D)``
-    hold b, the rest zero); mixtures pad to whole tiles of 64. The result
-    is ``[T, K, P/8, 8, 8, 4, 2]`` for T mixture tiles: per tile, per
-    density k, per 8-deep step s, per 8-mixture column block j and per
-    lane (g, t) = (lane / 4, lane % 4) the pair ``B[8s+t, 8j+g], B[8s+t+4,
-    8j+g]``. A lane loads its fragment with one 8-byte load, and one
-    density's 32-deep chunk of a tile is 8 KB of contiguous memory."""
+    The result is ``[2, K, M, P]``: ``op[0, k, m, p] + op[1, k, m, p]``
+    (hi + lo) is ``a[p, m K + k]`` for ``p < D``, ``b[p - D, m K + k]`` for
+    ``D <= p < 2 D`` and 0 up to ``P = round_up(2 D, 32)``. The kernel's TMA
+    cuts it in boxes of 32 deep x 128 mixtures x both planes of one
+    density and swizzles them on the way into shared memory; mixtures past
+    M read as zero there, so none are stored."""
     D = a.shape[0]
-    T, _, S = operand_shape(D, M, K)[:3]
-    P = S * 8
-    w = torch.zeros((P, K, T * TILE_M), dtype=torch.float32, device=a.device)
-    w[:D, :, :M] = a.reshape(D, M, K).permute(0, 2, 1)
-    w[D:2 * D, :, :M] = b.reshape(D, M, K).permute(0, 2, 1)
-    w = w.reshape(P // 8, 2, 4, K, T, 8, 8)  # s, h, t, k, tile, j, g
-    return w.permute(4, 3, 0, 5, 6, 2, 1).contiguous()  # tile, k, s, j, g, t, h
+    P = operand_shape(D, M, K)[-1]
+    w = torch.zeros((K, M, P), dtype=torch.float32, device=a.device)
+    w[:, :, :D] = a.reshape(D, M, K).permute(2, 1, 0)
+    w[:, :, D:2 * D] = b.reshape(D, M, K).permute(2, 1, 0)
+    return torch.stack(tf32_split(w)).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)

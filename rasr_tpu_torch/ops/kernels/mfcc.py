@@ -9,9 +9,11 @@ Both take the window folded into the DFT bases (:func:`folded_bases`),
 as the reference's Pallas kernel does. The kernel reads the bases as one
 packed tensor-core operand (:func:`pack_basis`), made once by the caller
 that owns the bases (``FeatureFrontend``). It takes any frame length and
-FFT size, and up to 144 mel bands (its shared memory holds the mel rows
-of a pass and the frames' mel energies). The log frame energy comes out
-of the same launch as one more band and cepstrum (:func:`with_energy`).
+FFT size, and up to 307 mel bands at 257 bins (the frames' mel energies
+sit in shared memory beside the basis ring, and so do the utterances'
+sample spans and the mel weights where they fit; else those are read
+from global memory). The log frame energy comes out of the same launch
+as one more band and cepstrum (:func:`with_energy`).
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ import torch
 from ... import _build
 from .tf32 import tf32_split
 
-#: the fused kernel's bin groups per pass and depth chunk (``csrc/mfcc_fused.cu``)
-GROUPS_PER_PASS, DEPTH_CHUNK = 12, 16
+#: the fused kernel's depth chunk: one TMA box row (``csrc/mfcc_fused.cu``)
+DEPTH_CHUNK = 32
 
 
 def folded_bases(params):
@@ -32,25 +34,22 @@ def folded_bases(params):
 
 
 def pack_basis(cosw: torch.Tensor, sinw: torch.Tensor) -> torch.Tensor:
-    """The fused kernel's DFT operand: ``[cosw | sinw]`` split into TF32
-    hi/lo planes, in the tensor cores' ``m16n8k8`` fragment order.
+    """The fused kernel's DFT operand: ``[cosw | sinw]`` K-major (the
+    depth contiguous) as TF32 ``wgmma`` takes it, the cos and sin columns
+    of a bin side by side, split into TF32 hi and lo planes.
 
-    Depth pads to whole chunks of 16, bins to whole passes of 12 groups
-    of 8. The result is ``[G, L/16, 2, 2, 8, 4, 2, 2]``: per bin group gi, per
-    depth chunk c, per 8-deep step ks, for the cos then the sin columns,
-    per lane (g, t) = (lane / 4, lane % 4) the four values ``hi(W[l, 8gi+g]),
-    hi(W[l+4, 8gi+g]), lo(W[l, 8gi+g]), lo(W[l+4, 8gi+g])`` with ``l = 16c +
-    8ks + t``: a lane loads its fragment with one 16-byte load, and one
-    group's chunk is 2 KB of contiguous memory."""
+    The result is ``[2, 2 bins, Lp]`` with ``Lp = round_up(L, 32)``:
+    ``op[0, 2 b + s, l] + op[1, 2 b + s, l]`` (hi + lo) is ``cosw[l, b]``
+    for ``s = 0`` and ``sinw[l, b]`` for ``s = 1``, and 0 for ``l >= L``.
+    The kernel's TMA cuts it in boxes of 32 deep x 128 columns (64 bins),
+    136 (68) or 16 (8) x both planes and swizzles them on the way into
+    shared memory."""
     L, bins = cosw.shape
-    G, C = pack_basis_shape(L, bins)[:2]
-    Lp = C * DEPTH_CHUNK
-    w = torch.zeros((2, Lp, G * 8), dtype=torch.float32, device=cosw.device)
-    w[0, :L, :bins] = cosw
-    w[1, :L, :bins] = sinw
-    planes = torch.stack(tf32_split(w))  # [2, 2, Lp, G*8]
-    planes = planes.reshape(2, 2, Lp // 16, 2, 2, 4, G, 8)  # plane, cs, c, ks, h, t, gi, g
-    return planes.permute(6, 2, 3, 1, 7, 5, 0, 4).contiguous()  # gi, c, ks, cs, g, t, plane, h
+    Lp = pack_basis_shape(L, bins)[-1]
+    w = torch.zeros((bins, 2, Lp), dtype=torch.float32, device=cosw.device)
+    w[:, 0, :L] = cosw.T
+    w[:, 1, :L] = sinw.T
+    return torch.stack(tf32_split(w.reshape(2 * bins, Lp))).contiguous()
 
 
 def with_energy(mel: torch.Tensor, dct: torch.Tensor):
@@ -130,8 +129,7 @@ def _launch(frames, cosw, sinw, mel, dct, log_floor, basis):
 
 def pack_basis_shape(L: int, bins: int):
     """Shape of :func:`pack_basis`'s result for ``[L, bins]`` bases."""
-    G = -(-bins // (8 * GROUPS_PER_PASS)) * GROUPS_PER_PASS
-    return (G, -(-L // DEPTH_CHUNK), 2, 2, 8, 4, 2, 2)
+    return (2, 2 * bins, -(-L // DEPTH_CHUNK) * DEPTH_CHUNK)
 
 
 #: launches of the CUDA kernel since the last reset (plain runs not counted)

@@ -37,7 +37,7 @@ from rasr_tpu_torch.ops.gammatone import (  # noqa: E402
 )
 from rasr_tpu_torch.ops.kernels.gmm import gmm_scores, gmm_scores_plain  # noqa: E402
 from rasr_tpu_torch.ops.kernels.mfcc import (  # noqa: E402
-    folded_bases, mfcc_frames, mfcc_frames_plain, pack_basis,
+    folded_bases, mfcc_frames, mfcc_frames_plain, pack_basis, with_energy,
 )
 from rasr_tpu_torch.ops.kernels.row_gather import row_gather, row_gather_plain  # noqa: E402
 from rasr_tpu_torch.ops.kernels.wordend import (  # noqa: E402
@@ -88,11 +88,13 @@ def _mixtures(rng, M, K, D):
 @pytest.mark.parametrize("max_approx", [True, False])
 @pytest.mark.parametrize("N,M,K,D", [(1000, 70, 3, 45), (5, 13, 2, 9), (300, 129, 8, 17),
                                      (257, 65, 2, 64), (130, 66, 3, 80), (257, 65, 2, 96),
-                                     (140, 70, 3, 150)])
+                                     (140, 70, 3, 150), (4096, 1000, 8, 51)])
 def test_gmm_kernel_matches_plain(card, max_approx, N, M, K, D):
     """Ragged frame / mixture / feature edges; fp32 sums in another order.
-    D > 48 streams each density's depth in several chunks; D = 80 is the
-    largest resident frame tile, and deeper models stream the frames too."""
+    D = 64 is the deepest resident frame tile beside three ring stages,
+    D = 80 the deepest beside two; deeper models rewrite a 32-deep slab of
+    frames per stage. D = 51, M = 1000, K = 8 at N = 4,096 is the tensor-
+    parallel scorer's half inventory of the frontend-ext model."""
     rng = np.random.default_rng(N + M)
     st = make_scoring_tensors(_mixtures(rng, M, K, D), device=card)
     x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(card)
@@ -104,26 +106,32 @@ def test_gmm_kernel_matches_plain(card, max_approx, N, M, K, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,fft,num_mel", [(3, 16000, 0, 20), (1, 1200, 0, 20),
-                                             (2, 4321, 1024, 20), (3, 16000, 0, 40),
-                                             (2, 4321, 0, 80)])
-def test_mfcc_kernel_matches_plain(card, B, S, fft, num_mel):
+@pytest.mark.parametrize("B,S,fft,num_mel,energy", [
+    (3, 16000, 0, 20, False), (1, 1200, 0, 20, False), (2, 4321, 1024, 20, False),
+    (3, 16000, 0, 40, False), (2, 4321, 0, 80, False), (2, 16000, 0, 80, True),
+    (2, 4321, 0, 144, False), (2, 4321, 400, 20, False)])
+def test_mfcc_kernel_matches_plain(card, B, S, fft, num_mel, energy):
     """Strided frame views of the signal, frame counts off the tile, more
-    bins than one thread block has threads (1024-point FFT), and more mel
-    bands than one group of 32 (at 80 the frames are read from global
-    memory: the staged span no longer fits beside the mel rows)."""
-    cfg = FrontendConfig(fft_size=fft, num_mel=num_mel)
+    bins than one thread block has threads (1024-point FFT: 8 passes, the
+    last widened to 65 bins), 80 bands with the energy column (81 bands, 17
+    outputs), 144 bands (the staged span beside two ring stages, the mel
+    weights read from global memory), and a 400-point FFT (201 bins: two
+    passes of 8 bins past the last 64). The flat frames do not overlap and
+    are read from global memory as they are: the same cepstra, bit for
+    bit."""
+    cfg = FrontendConfig(fft_size=fft, num_mel=num_mel, append_energy=energy)
     p = make_params(cfg, card)
     cosw, sinw = folded_bases(p)
+    mel, dct = with_energy(p.mel, p.dct) if energy else (p.mel, p.dct)
     basis = pack_basis(cosw, sinw)
     rng = np.random.default_rng(S)
     sig = torch.from_numpy((rng.normal(size=(B, S)) * 0.1).astype(np.float32)).to(card)
     frames = frame_signal(preemphasize(sig, cfg.preemphasis), num_frames(S, cfg), cfg)
-    got = mfcc_frames(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor, basis)
-    want = mfcc_frames_plain(frames, cosw, sinw, p.mel, p.dct, cfg.log_floor)
+    got = mfcc_frames(frames, cosw, sinw, mel, dct, cfg.log_floor, basis)
+    want = mfcc_frames_plain(frames, cosw, sinw, mel, dct, cfg.log_floor)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     flat = mfcc_frames(frames.reshape(-1, cfg.frame_length).contiguous(), cosw, sinw,
-                       p.mel, p.dct, cfg.log_floor, basis)
+                       mel, dct, cfg.log_floor, basis)
     torch.testing.assert_close(flat.reshape(got.shape), got, rtol=0, atol=0)
 
 

@@ -227,18 +227,18 @@ def test_energy_column_rides_the_kernel_operands(rng):
 
 @pytest.mark.parametrize("sample_rate", [16000, 8000])
 def test_packed_basis_holds_the_folded_bases(sample_rate):
-    """The MFCC kernel's operand: [cosw | sinw] split into TF32 hi + lo,
-    depth padded to 16 and bins to passes of 96, in fragment order."""
+    """The MFCC kernel's operand: [cosw | sinw] K-major, the cos and sin
+    columns of a bin side by side, split into TF32 hi + lo, depth padded
+    to whole TMA rows of 32."""
     cfg = tfe.FrontendConfig(sample_rate=sample_rate)
     cosw, sinw = folded_bases(tfe.make_params(cfg, device="cpu"))
     L, bins = cosw.shape
     op = pack_basis(cosw, sinw)
     assert tuple(op.shape) == pack_basis_shape(L, bins)
     assert not (op.view(torch.int32) & 0x1FFF).any()  # every plane is TF32
-    G, NCH = op.shape[:2]
-    assert G * 8 >= bins and G % 12 == 0 and NCH * 16 >= L
-    full = op.sum(-2)  # hi + lo: group, chunk, step, cos|sin, g, t, h
-    full = full.permute(3, 1, 2, 6, 5, 0, 4).reshape(2, NCH * 16, G * 8)  # cos|sin, l, bin
-    torch.testing.assert_close(full[0, :L, :bins], cosw, rtol=2.0**-21, atol=0)
-    torch.testing.assert_close(full[1, :L, :bins], sinw, rtol=2.0**-21, atol=0)
-    assert not full[:, L:].any() and not full[:, :, bins:].any()
+    planes, cols, Lp = op.shape
+    assert planes == 2 and cols == 2 * bins and Lp % 32 == 0 and Lp - 32 < L <= Lp
+    full = (op[0].double() + op[1].double()).reshape(bins, 2, Lp)  # hi + lo: bin, cos|sin, l
+    torch.testing.assert_close(full[:, 0, :L].T, cosw.double(), rtol=2.0**-21, atol=0)
+    torch.testing.assert_close(full[:, 1, :L].T, sinw.double(), rtol=2.0**-21, atol=0)
+    assert not full[:, :, L:].any()

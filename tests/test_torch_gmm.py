@@ -68,14 +68,15 @@ def test_scoring_tensors_match_jax_and_convert(rng):
         for name in ("a", "b", "c"):
             np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(jst, name)))
         assert (t.num_mixtures, t.max_densities, t.dim) == (6, 4, 5)
-        # the kernel's operand: [a; b] per density k, depth padded to 32 and
-        # mixtures to 64, in fragment order
+        # the kernel's operand: [a; b] per density k, K-major (the depth
+        # contiguous, padded to 32), split into TF32 hi and lo planes
         op = t.operand.numpy()
-        assert op.shape == (1, 4, 4, 8, 8, 4, 2)  # tile, k, s, j, g, t, h
-        full = op.transpose(1, 2, 6, 5, 0, 3, 4).reshape(4, 32, 64)  # k, depth, mixture
+        assert op.shape == (2, 4, 6, 32)  # hi|lo, k, mixture, depth
+        assert not (op.view(np.int32) & 0x1FFF).any()  # every plane is TF32
+        full = op[0].astype(np.float64) + op[1]  # hi + lo: k, mixture, depth
         ab = np.concatenate([np.asarray(jst.a), np.asarray(jst.b)]).reshape(10, 6, 4)
-        np.testing.assert_array_equal(full[:, :10, :6], ab.transpose(2, 0, 1))
-        assert not full[:, 10:].any() and not full[:, :, 6:].any()
+        np.testing.assert_allclose(full[:, :, :10], ab.transpose(2, 1, 0), rtol=2.0**-21, atol=0)
+        assert not full[:, :, 10:].any()
         np.testing.assert_array_equal(
             t.c_k.numpy(), np.asarray(jst.c).reshape(6, 4).T
         )

@@ -21,7 +21,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from rasr_tpu_torch.examples import gather_microbench, wordend_microbench
+from rasr_tpu_torch.examples import gather_microbench, kernel_bench, wordend_microbench
 from rasr_tpu_torch.ops.kernels import row_gather as rg
 from rasr_tpu_torch.ops.kernels import wordend as we
 
@@ -187,3 +187,5 @@ def test_microbench_entry_points_refuse_the_cpu():
         wordend_microbench.run("cpu")
     with pytest.raises(ValueError):
         gather_microbench.run("cpu")
+    with pytest.raises(ValueError):
+        kernel_bench.run("cpu")
