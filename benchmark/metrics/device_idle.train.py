@@ -1,0 +1,7 @@
+"""The share of the traced train sub-window with nothing running on the device."""
+
+from benchmark.metrics import idle
+
+
+def read(inputs):
+    return idle(inputs, "train")
