@@ -11,6 +11,7 @@ GMM scorer on the card, the scores come from the fused GMM kernel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
@@ -19,6 +20,7 @@ import torch
 
 from ..models.scorer import FeatureScorer
 from ..ops.viterbi import BIG, forward_backward, viterbi_align
+from ..utils import profiling
 from ..utils.archive import pack_ndarray, unpack_ndarray
 from .graph import LinearGraph
 
@@ -110,6 +112,10 @@ def _gather_emissions(scores: torch.Tensor, emission_ids: torch.Tensor) -> torch
     return scores.gather(2, idx)
 
 
+def _no_span(name: str, **counts):
+    return contextlib.nullcontext()
+
+
 def _device_graphs(graphs: Sequence[LinearGraph], device):
     """The padded graph arrays as tensors on ``device``."""
     return tuple(torch.from_numpy(a).to(device) for a in _pad_graphs(graphs))
@@ -135,25 +141,32 @@ class BatchAligner:
     ) -> List[Alignment]:
         names = names or [f"utt{i}" for i in range(len(graphs))]
         scores = torch.as_tensor(scores)
-        ids, loop, fwd, skip, init, final = _device_graphs(graphs, scores.device)
-        emis = _gather_emissions(scores, ids)
-        n_host = np.asarray(torch.as_tensor(n_frames).cpu())
-        nf = torch.as_tensor(n_host, dtype=torch.int64, device=scores.device)
-        out = []
-        if self.mode == "viterbi":
-            best, states = viterbi_align(emis, loop, fwd, skip, init, final, nf)
-            best, states = best.cpu().numpy(), states.cpu().numpy()
-            for i, g in enumerate(graphs):
-                n = int(n_host[i])
-                seq = states[i, :n]
-                out.append(Alignment(
-                    segment_name=names[i],
-                    emission_ids=g.emission_ids[seq],
-                    state_indices=seq.astype(np.int32),
-                    score=float(best[i]),
-                    weights=np.ones(n, np.float32),
-                ))
-            return out
+        viterbi = self.mode == "viterbi"
+        # a Viterbi batch is one span; its reads wait for the card, so
+        # aligner.host_us_per_frame takes them out
+        span = profiling.span if viterbi else _no_span
+        with span("align.viterbi", frames=scores.shape[1]):
+            with span("align.read"):
+                n_host = np.asarray(torch.as_tensor(n_frames).cpu())
+            ids, loop, fwd, skip, init, final = _device_graphs(graphs, scores.device)
+            emis = _gather_emissions(scores, ids)
+            nf = torch.as_tensor(n_host, dtype=torch.int64, device=scores.device)
+            out = []
+            if viterbi:
+                best, states = viterbi_align(emis, loop, fwd, skip, init, final, nf)
+                with span("align.read"):
+                    best, states = best.cpu().numpy(), states.cpu().numpy()
+                for i, g in enumerate(graphs):
+                    n = int(n_host[i])
+                    seq = states[i, :n]
+                    out.append(Alignment(
+                        segment_name=names[i],
+                        emission_ids=g.emission_ids[seq],
+                        state_indices=seq.astype(np.int32),
+                        score=float(best[i]),
+                        weights=np.ones(n, np.float32),
+                    ))
+                return out
         total, gamma = forward_backward(emis, loop, fwd, skip, init, final, nf)
         total, gamma = total.cpu().numpy(), gamma.cpu().numpy()
         for i, g in enumerate(graphs):

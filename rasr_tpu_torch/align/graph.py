@@ -32,6 +32,7 @@ from ..models.allophone import AllophoneAlphabet, AllophoneState
 from ..models.hmm import HmmTopology, TransitionModel
 from ..models.tying import StateTying
 from ..ops.viterbi import BIG
+from ..utils import profiling
 
 
 class OrthographyError(ValueError):
@@ -76,6 +77,7 @@ class LinearGraph:
         return self.emission_ids.shape[0]
 
 
+@profiling.spanned("align.graph")
 def build_linear_graph(
     orth: str,
     lexicon: Lexicon,

@@ -12,10 +12,30 @@ path, as ``chip_smoke.py`` runs it) of 10 s of noise, decodes their
 under ``torch.profiler``. Prints one JSON line: wall ms per frame of the
 timed decode, and of the profiled window kernel launches per frame
 (copies and memsets left out), device ms per frame (the sum of kernel
-and copy durations), the device's busy share, and the kernels that take
-most device time:
+and copy durations), the device's busy share, the kernels that take
+most device time, and per phase of the frame step (``decoder.PHASES``)
+the host microseconds per step and the device milliseconds per step;
+last, ``spans_us``: per program span name, the count, mean, min, max and
+sum of its microseconds over the whole run (``profiling.report()``: the
+warm-up, timed and profiled decodes' ``decode.dispatch`` beside the
+profiled window's phases).
 
-    python -m rasr_tpu_torch.examples.profile_decode [--path across-word] [--beam slice_a]
+Under the profiler the frame step marks the end of each phase
+(``decode.step.<phase>`` spans of ``utils/profiling.py``, on the
+profiler's clock); a kernel or copy counts to the phase during which the
+host launched it (the runtime call that its correlation id names), and
+``outside`` holds what the decode launched outside the frame steps:
+
+    python -m rasr_tpu_torch.examples.profile_decode [--path across-word] [--beam slice_a] \
+        [--trace-dir DIR]
+
+The profiled window's traces go to ``--trace-dir`` (a new temporary
+directory by default, named on standard error): ``trace.json`` (the
+profiler's), ``spans.json`` (the program's spans on its time base) and
+``merged.json``, both in one. Open ``merged.json`` in
+https://ui.perfetto.dev (Open trace file) or ``chrome://tracing``: the
+phases sit on the "program spans" row over the host's calls and the
+card's kernels.
 
 The counterpart of ``examples/profile_decode.py`` (the JAX package's HLO
 profile).
@@ -24,8 +44,10 @@ profile).
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -33,7 +55,9 @@ import numpy as np
 import torch
 
 from ..device import cuda_device
+from ..search.decoder import PHASES
 from ..synthetic import PATHS, PRODUCTION_BEAM, SLICE_A_BEAM, build_setup
+from ..utils import profiling
 
 BEAMS = {"production": PRODUCTION_BEAM, "slice_a": SLICE_A_BEAM}
 BATCH, FRAMES, PROFILE_FRAMES, TOP = 64, 998, 50, 12
@@ -50,6 +74,31 @@ def busy_us(intervals) -> float:
     return busy
 
 
+def device_ns_by_span(prof, spans) -> dict:
+    """Device ns of the kernels and copies each span's name launched: each
+    device event's launch is the host runtime call its correlation id
+    names, and its span the one whose interval holds that call's start
+    (``outside`` where none does, ``unmatched`` where no launch is found).
+    The spans are on the profiler's clock (``utils/profiling.py``)."""
+    launch, dev = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev.append((e.correlation_id(), e.duration_ns()))
+        elif e.name().startswith("cu"):
+            launch[e.correlation_id()] = e.start_ns()
+    spans = sorted(spans, key=lambda sp: sp.start_ns)
+    starts = [sp.start_ns for sp in spans]
+    out = defaultdict(int)
+    for corr, ns in dev:
+        t = launch.get(corr)
+        if t is None:
+            out["unmatched"] += ns
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        out[spans[i].name if i >= 0 and t <= spans[i].end_ns else "outside"] += ns
+    return dict(out)
+
+
 def emissions(setup, device, batch: int, frames: int) -> torch.Tensor:
     """``[batch, frames, M]`` emissions of seeded noise (10 s of it at 998
     frames), through ``setup``'s frontend and scorer on ``device``."""
@@ -60,7 +109,7 @@ def emissions(setup, device, batch: int, frames: int) -> torch.Tensor:
     return setup.scorer(feats)[:, :frames].contiguous()
 
 
-def profile(device, beam: str, path: str = "production") -> dict:
+def profile(device, beam: str, path: str = "production", trace_dir: str = "") -> dict:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the profile times a CUDA card, got {device}")
@@ -80,11 +129,18 @@ def profile(device, beam: str, path: str = "production") -> dict:
     t0 = time.perf_counter()
     decode(FRAMES)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    trace_dir = trace_dir or tempfile.mkdtemp(prefix="profile_decode_")
+    since = profiling.RECORDER.now_ns()
+    with profiling.trace(trace_dir) as prof:
         t0 = time.perf_counter()
         decode(PROFILE_FRAMES)
         window_us = (time.perf_counter() - t0) * 1e6
+    print(f"[profile_decode] traces in {trace_dir}; open {profiling.merge_chrome(trace_dir)}",
+          file=sys.stderr)
+    marks = {p: [sp for sp in profiling.records(f"decode.step.{p}") if sp.start_ns >= since]
+             for p in PHASES}
+    steps = len(marks[PHASES[0]])
+    by_phase = device_ns_by_span(prof, [sp for ps in marks.values() for sp in ps])
     on_device = [ev for ev in prof.events()
                  if ev.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [ev for ev in on_device if not ev.name.startswith(("Memcpy", "Memset"))]
@@ -106,6 +162,14 @@ def profile(device, beam: str, path: str = "production") -> dict:
         "top": [{"name": k[:80], "ms_per_frame": v / 1e3 / PROFILE_FRAMES,
                  "share": v / device_us}
                 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],
+        "marked_steps": steps,
+        "phases": {p: {"host_us_per_step": sum(sp.end_ns - sp.start_ns for sp in marks[p])
+                       / 1e3 / max(steps, 1),
+                       "device_ms_per_step": by_phase.get(f"decode.step.{p}", 0) / 1e6
+                       / max(steps, 1)} for p in PHASES},
+        "device_ms_outside_steps": by_phase.get("outside", 0) / 1e6,
+        "device_ms_unmatched": by_phase.get("unmatched", 0) / 1e6,
+        "spans_us": profiling.report(),
     }
 
 
@@ -113,8 +177,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=["production", *PATHS], default="production")
     ap.add_argument("--beam", choices=sorted(BEAMS), default="production")
+    ap.add_argument("--trace-dir", default="", help="where the profiled window's traces go")
     args = ap.parse_args(argv)
-    out = profile(cuda_device(), args.beam, args.path)
+    out = profile(cuda_device(), args.beam, args.path, args.trace_dir)
     if not out["launches_per_frame"]:
         raise RuntimeError("the profiler saw no device kernels")
     print(json.dumps(out))

@@ -77,11 +77,20 @@ divided by P, root select off: the reference's rule), the beam offset is
 an ``all_reduce(MIN)``, and one ``all_gather`` of each rank's local top-K
 per frame feeds a replicated recombination and top-K, after which the
 word ends run identically on every rank (``_Step._merge``).
+
+Every decode records a ``decode.dispatch`` span (``utils/profiling.py``)
+and every best-path read a ``decode.read`` span around its first wait on
+the device, ``decode.read.wait``. While a ``torch.profiler`` records, the
+frame step also stamps the end of each of its :data:`PHASES` (one host
+clock read each, nothing on the device): each frame becomes a
+``decode.step`` span with one child span per phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -90,8 +99,16 @@ import torch
 from ..device import resolve
 from ..models.lm.ngram import LookupTables, NgramTables, lookup_prepared, prepare_lookup
 from ..parallel.mesh import all_gather, all_reduce, axis_index, axis_size, data_rows
+from ..utils import profiling
 from .rnn_fusion import RnnFusionTables, cell_step, word_scores
 from .tree import BIG, WORD_NONE, PrefixTree
+
+
+#: the frame step's phases, as its ``# ----`` sections mark them
+PHASES = ("expand", "branch_fan", "beam", "recombine", "word_ends", "top_r", "lm", "merge",
+          "freeze")
+_clock = time.perf_counter_ns
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -502,6 +519,9 @@ class _Step:
                  beam_axis: Optional[str] = None):
         self.tree, self.lm, self.prep, self.cfg = tree, lm, prep, cfg
         self.rnn = rnn
+        # phase marks: the clock at the end of each of PHASES, frame after
+        # frame, after one stamp at the start (None: not marking)
+        self.marks: Optional[list] = None
         self.wmax, self.hroot, self.kbranch = wmax, hroot, kbranch
         # the partitioned beam: this rank expands slots [my * K_loc, (my + 1)
         # * K_loc) of the replicated carry, keeps its local top-K, and one
@@ -684,7 +704,7 @@ class _Step:
         """Frame ``t`` (global: record ids ``t * R + r``); its word-end
         records go to row ``row`` of ``recs`` and, under RNN fusion, their
         states to pool rows ``pool_row + r``."""
-        tree, cfg, bla, rnn = self.tree, self.cfg, self.bla, self.rnn
+        tree, cfg, bla, rnn, marks = self.tree, self.cfg, self.bla, self.rnn, self.marks
         SENT = tree.sentinel
         K, R, L = cfg.max_hyps, cfg.word_end_limit, self.L
         B = c.state.shape[0]
@@ -715,6 +735,8 @@ class _Step:
             dd2 = self.dpair[cls, bla.pair2[state]]
             p_d1, p_d2 = p_d1 + dd1, p_d2 + dd2
             phi_d1, phi_d2 = phi + dd1, phi + dd2
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- branch fan: top-Kb hyps at fan-out states (the RNN pool row
         # rides as the last payload column)
@@ -775,6 +797,8 @@ class _Step:
             cand_score = torch.where(cand_pre < BIG / 2, cand_pre + emis(cand_cls), BIG)
         else:
             cand_score = torch.clamp(cand_pre + emis(cand_cls), max=BIG)
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- acoustic beam (over the root-select survivors too; the global
         # offset over the partitioned beam's slices)
@@ -785,6 +809,8 @@ class _Step:
         if self.P > 1:
             best = all_reduce(best, self.mesh, self.beam_axis, "min")
         cand_score = torch.where(cand_score > best + cfg.beam, BIG, cand_score)
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- recombination + histogram top-K (the winner keeps its
         # applied correction)
@@ -801,6 +827,8 @@ class _Step:
         if self.P > 1:
             n_state, n_lm, n_score, n_bp, n_phi, n_rnn = self._merge(
                 n_state, n_lm, n_score, n_bp, n_phi, n_rnn)
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- word ends scan the beam plus the root-select survivors
         if self.rsel:
@@ -828,6 +856,8 @@ class _Step:
         # the word ends see the score without the bigram correction (the
         # unigram potential's undo is folded into the word-end costs)
         we_base = w_score - w_phi if bla is not None else w_score
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- pre-LM top-R (ties by slot index)
         W, we = self.wmax, self.we
@@ -870,7 +900,10 @@ class _Step:
         if self.rank_lm:
             # undo the selection bias: the exact LM cost replaces it
             r_pre = torch.where(r_pre < BIG / 2, r_pre - we["bias"][r_src, r_slot], r_pre)
+        if marks is not None:
+            marks.append(_clock())
 
+        # ---- LM lookups
         is_lm_word = r_word >= 0
         lm_cost, lm_next = lookup_prepared(
             self.lm, self.prep, r_srclm, torch.clamp(r_word, min=0)
@@ -897,6 +930,8 @@ class _Step:
             # and carries it for the next word end's undo
             re_phi = torch.where(r_valid, self.corr[bla.cls_of_lm[r_newlm], bla.sub[re_state]], 0.0)
             re_score = torch.where(r_valid, re_score + re_phi, BIG)
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- merge the word-end re-entries (and root-select survivors);
         # a re-entry at a root carries the root's correction, 0
@@ -911,6 +946,8 @@ class _Step:
         if rnn is not None:
             f_rnn = torch.cat([w_rnn, new_rnn], dim=1).gather(1, midx)
             rnn_row = torch.where(active, f_rnn, c.rnn_row)
+        if marks is not None:
+            marks.append(_clock())
 
         # ---- freeze finished utterances (the whole carry: a partitioned
         # rank expanded a slice of it), capture finals at their last frame
@@ -940,6 +977,8 @@ class _Step:
             torch.where(is_last, bp, c.fbp),
             phi,
         )
+        if marks is not None:
+            marks.append(_clock())
         if rnn is None:
             return Carry(*core)
         return FusedCarry(*core, rnn_row, torch.where(is_last, rnn_row, c.f_rnnrow), c.cs, c.hs)
@@ -1119,10 +1158,14 @@ def traceback(handle: DeviceDecode) -> torch.Tensor:
     maxw = min(T, MAX_WALK)
     steps = []
     while len(steps) < maxw:
+        first = not steps
         for _ in range(min(WALK_CHUNK, maxw - len(steps))):
             steps.append(at)
             at = nxt.gather(1, at)
-        if not bool((at < n).any()):
+        # the first read waits for the card to finish the decode
+        with profiling.span("decode.read.wait") if first else _NO_SPAN:
+            ended = not bool((at < n).any())
+        if ended:
             break
     ids = torch.cat(steps, dim=1)  # [B, steps]
     live = ids < n
@@ -1261,11 +1304,16 @@ class TreeDecoder:
                 beam_axis: Optional[str] = None) -> DeviceDecode:
         B, T, _M = emissions.shape
         pool = self.cfg.word_end_limit * T if self.rnn is not None else 0
-        carry, recs = _decode_block(
-            self._step(mesh, beam_axis),
-            init_carry(B, self.cfg, self.lm, self.device, self.rnn, pool), emissions, 0,
-            n_frames)
-        return self._finalize(carry, [recs], n_frames)
+        with profiling.span("decode.dispatch", steps=T):
+            step = self._step(mesh, beam_axis)
+            carry = init_carry(B, self.cfg, self.lm, self.device, self.rnn, pool)
+            if profiling.profiler_recording():
+                step.marks = [_clock()]
+            carry, recs = _decode_block(step, carry, emissions, 0, n_frames)
+            handle = self._finalize(carry, [recs], n_frames)
+            if step.marks is not None:
+                profiling.RECORDER.add_marked("decode.step", PHASES, step.marks)
+        return handle
 
     def _step(self, mesh=None, beam_axis: Optional[str] = None) -> _Step:
         """The frame step over this decoder's tables and beam. Over a beam
@@ -1303,7 +1351,8 @@ class TreeDecoder:
     ) -> List[DecodeResult]:
         """Walk a decode's best paths on the device and assemble results
         from the one payload read to the host (:func:`traceback`)."""
-        return self.results_from_walk(traceback(handle).cpu().numpy(), names)
+        with profiling.span("decode.read"):
+            return self.results_from_walk(traceback(handle).cpu().numpy(), names)
 
     def results_from_walk(self, payload: np.ndarray,
                           names: Optional[Sequence[str]] = None) -> List[DecodeResult]:
