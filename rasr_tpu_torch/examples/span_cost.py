@@ -10,12 +10,10 @@ each decode (the call of ``decode_scores_device``), over its frame steps:
   spans, each decode's ``decode.dispatch`` span per step and its
   ``decode.read.wait`` (the host's wait for the card at the read) are
   printed beside the outside timing.
-- ``on``: ``--profiled`` pairs of decodes of the first ``--profile-frames``
-  frames under ``torch.profiler``, in turns with the frame step's phase
-  marks and without them (``profiling.profiler_recording`` patched to
-  false for the decode, which leaves the step's code as it runs off the
-  profiler). A program without the marks runs only the second of each
-  pair.
+- ``on``: ``--profiled`` decodes of the first ``--profile-frames`` frames
+  under ``torch.profiler``, as the program runs them there (a program
+  whose frame step marks its phases under the profiler marks them; this
+  one replays its CUDA graph, as off the profiler).
 
 Prints one JSON line: per series the host microseconds per step of each
 decode, their median and quartiles. It calls only what the decoder has
@@ -67,7 +65,6 @@ def run(device, decodes: int = 12, profiled: int = 8, profile_frames: int = 300,
     s = setup or build_setup(device=device, beam=PRODUCTION_BEAM)
     emis = emissions(s, device, batch, frames)
     records = getattr(profiling, "records", None)  # None: a program without spans
-    marked = hasattr(profiling, "profiler_recording")
 
     def dispatch_us_per_step(f: int) -> float:
         nf = torch.full((batch,), f, dtype=torch.int64, device=device)
@@ -88,26 +85,18 @@ def run(device, decodes: int = 12, profiled: int = 8, profile_frames: int = 300,
                 (span.end_ns - span.start_ns) / 1e3 / span.counts["steps"])
             off["read_wait_us"].append((wait.end_ns - wait.start_ns) / 1e3)
 
-    on = {"marks": [], "no_marks": []}
+    on = []
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     for _ in range(profiled):
-        for series in ("marks", "no_marks") if marked else ("no_marks",):
-            recording = profiling.profiler_recording if marked else None
-            if series == "no_marks" and marked:
-                profiling.profiler_recording = lambda: False
-            try:
-                with torch.profiler.profile(activities=acts):
-                    on[series].append(dispatch_us_per_step(profile_frames))
-            finally:
-                if recording is not None:
-                    profiling.profiler_recording = recording
+        with torch.profiler.profile(activities=acts):
+            on.append(dispatch_us_per_step(profile_frames))
     return {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
         "batch": batch, "frames": frames, "profile_frames": profile_frames,
         "off": {k: _summary(v) for k, v in off.items()},
-        "on": {k: _summary(v) for k, v in on.items()},
+        "on": _summary(on),
     }
 
 

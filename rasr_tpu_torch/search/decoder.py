@@ -78,12 +78,24 @@ an ``all_reduce(MIN)``, and one ``all_gather`` of each rank's local top-K
 per frame feeds a replicated recombination and top-K, after which the
 word ends run identically on every rank (``_Step._merge``).
 
+On a CUDA card the frame step is captured once per batch shape as a CUDA
+graph (:class:`_StepGraph`) and replayed for every frame of a block: the
+frame index ``t`` is a device scalar that the graph advances, the carry
+lives in static buffers, and the frame's record rows come out of a static
+block that one copy moves into the decode's records. The host makes three
+calls a frame in place of the step's few hundred launches. The CPU, the
+partitioned beam (collectives inside the step), RNN fusion (state pools
+sized per decode) and a step that marks its phases run eagerly, the same
+code with the same device frame index.
+
 Every decode records a ``decode.dispatch`` span (``utils/profiling.py``)
-and every best-path read a ``decode.read`` span around its first wait on
-the device, ``decode.read.wait``. While a ``torch.profiler`` records, the
-frame step also stamps the end of each of its :data:`PHASES` (one host
-clock read each, nothing on the device): each frame becomes a
-``decode.step`` span with one child span per phase.
+with its frames (``steps``) and those replayed from a graph
+(``graph_steps``), a graph's capture a ``decode.capture`` span, and every
+best-path read a ``decode.read`` span around its first wait on the device,
+``decode.read.wait``. An eager step whose ``marks`` is a list stamps the
+end of each of its :data:`PHASES` (one host clock read each, nothing on the
+device): ``examples/profile_decode.py`` makes each frame a ``decode.step``
+span with one child span per phase.
 """
 
 from __future__ import annotations
@@ -522,6 +534,7 @@ class _Step:
         # phase marks: the clock at the end of each of PHASES, frame after
         # frame, after one stamp at the start (None: not marking)
         self.marks: Optional[list] = None
+        self._graphs: dict = {}  # (B, M) -> _StepGraph
         self.wmax, self.hroot, self.kbranch = wmax, hroot, kbranch
         # the partitioned beam: this rank expands slots [my * K_loc, (my + 1)
         # * K_loc) of the replicated carry, keeps its local top-K, and one
@@ -699,11 +712,28 @@ class _Step:
         return (p_root, fan(tree.root_dst), fan(tree.root_cls), per_hyp(h_lm), per_hyp(h_bp),
                 h_rnn, root_phi)
 
-    def __call__(self, c, emis_t: torch.Tensor, t: int,
+    def graph_for(self, emissions: torch.Tensor) -> Optional["_StepGraph"]:
+        """The step's CUDA graph for blocks of ``emissions``' batch shape,
+        captured at its first use; None where the step runs eagerly: off a
+        card, over a partitioned beam (collectives inside the step), under
+        RNN fusion (state pools sized per decode) and while marking phases
+        (host clock reads)."""
+        if (emissions.device.type != "cuda" or self.P > 1 or self.rnn is not None
+                or self.marks is not None):
+            return None
+        B, _, M = emissions.shape
+        graph = self._graphs.get((B, M))
+        if graph is None:
+            with profiling.span("decode.capture"):
+                graph = self._graphs[(B, M)] = _StepGraph(self, B, M, emissions.device)
+        return graph
+
+    def __call__(self, c, emis_t: torch.Tensor, t,
                  n_frames: torch.Tensor, recs: Records, row: int, pool_row: int = 0):
-        """Frame ``t`` (global: record ids ``t * R + r``); its word-end
-        records go to row ``row`` of ``recs`` and, under RNN fusion, their
-        states to pool rows ``pool_row + r``."""
+        """Frame ``t`` (global: record ids ``t * R + r``; a device scalar on
+        the decode's path, an int works alike); its word-end records go to
+        row ``row`` of ``recs`` and, under RNN fusion, their states to pool
+        rows ``pool_row + r``."""
         tree, cfg, bla, rnn, marks = self.tree, self.cfg, self.bla, self.rnn, self.marks
         SENT = tree.sentinel
         K, R, L = cfg.max_hyps, cfg.word_end_limit, self.L
@@ -1083,25 +1113,92 @@ class DeviceDecode:
         return self._host
 
 
+#: the record columns' dtypes, in :class:`Records`' order
+_RECORD_DTYPES = (torch.int32, torch.float32, torch.int32, torch.float32, torch.int32,
+                  torch.int32)
+
+
+def _record_block(T: int, B: int, R: int, device):
+    """Records ``[T, B, R]`` as views of one int32 block ``[6, T, B, R]``
+    (the float columns as their bits), so that one copy moves a frame's six
+    rows: ``(block, records)``. The frame step writes every row whole."""
+    block = torch.empty((len(_RECORD_DTYPES), T, B, R), dtype=torch.int32, device=device)
+    return block, Records(*(block[i].view(d) for i, d in enumerate(_RECORD_DTYPES)))
+
+
+class _StepGraph:
+    """The frame step of one batch shape ``[B, M]`` captured as a CUDA graph.
+
+    The carry, the frame's emissions, the frame index and ``n_frames`` sit
+    in static buffers, and the frame's record rows in a static one-frame
+    block. Inside the graph the step's outputs are copied back into the
+    carry and the frame index advances, so that a frame costs the host one
+    copy of its emissions in, one replay and one copy of its records out."""
+
+    def __init__(self, step: _Step, B: int, M: int, device):
+        self.device = device
+        # a buffer each (a fresh carry's finals are its live columns)
+        self.carry = Carry(*(x.clone() for x in init_carry(B, step.cfg, step.lm, device)))
+        self.emis = torch.zeros((B, M), dtype=torch.float32, device=device)
+        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self.n_frames = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.rows, rows = _record_block(1, B, step.cfg.word_end_limit, device)
+
+        def frame():
+            out = step(self.carry, self.emis, self.t, self.n_frames, rows, 0)
+            for dst, src in zip(self.carry, out):
+                dst.copy_(src)
+            self.t.add_(1)
+
+        with torch.cuda.device(device):
+            # warm-up on a side stream (lazy initialisations stay out of the graph)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    frame()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                frame()
+
+    def run(self, c: Carry, emissions: torch.Tensor, t0: int, n_frames: torch.Tensor,
+            block: torch.Tensor) -> Carry:
+        """Replay the step over a block of frames ``[B, Tb, M]`` from the
+        carry ``c`` at frame ``t0``, each frame's records into ``block``
+        (:func:`_record_block`); returns the carry after the block."""
+        with torch.cuda.device(self.device):
+            for dst, src in zip(self.carry, c):
+                dst.copy_(src)
+            self.n_frames.copy_(n_frames)
+            self.t.fill_(t0)
+            for i in range(emissions.shape[1]):
+                self.emis.copy_(emissions[:, i])
+                self.graph.replay()
+                block[:, i].copy_(self.rows[:, 0])
+            return Carry(*(x.clone() for x in self.carry))
+
+
 def _decode_block(step: _Step, c: Carry, emissions: torch.Tensor, t0: int,
                   n_frames: torch.Tensor, rnn_base: int = 0):
     """Advance the beam over one block of frames ``[B, Tb, M]`` whose first
     frame is the utterances' frame ``t0`` (the counterpart of the
-    reference's ``_decode_block``): returns the carry and the block's
-    records ``[Tb, B, R]``. The offline decode is one block from frame 0;
-    a stream is one block per feed. Under RNN fusion the block's frame i
+    reference's ``_decode_block``): returns the carry, the block's records
+    ``[Tb, B, R]`` and whether the frames replayed the step's CUDA graph
+    (:meth:`_Step.graph_for`). The offline decode is one block from frame
+    0; a stream is one block per feed. Under RNN fusion the block's frame i
     writes pool rows ``rnn_base + i * R + r``."""
     B, Tb, _ = emissions.shape
     R, dev = step.cfg.word_end_limit, emissions.device
-
-    def rec(dtype, fill):
-        return torch.full((Tb, B, R), fill, dtype=dtype, device=dev)
-
-    recs = Records(rec(torch.int32, -1), rec(torch.float32, BIG), rec(torch.int32, -1),
-                   rec(torch.float32, 0.0), rec(torch.int32, WORD_NONE), rec(torch.int32, -1))
+    block, recs = _record_block(Tb, B, R, dev)
+    graph = step.graph_for(emissions)
+    if graph is not None:
+        return graph.run(c, emissions, t0, n_frames, block), recs, True
+    t = torch.full((), t0, dtype=torch.int64, device=dev)  # on the device, as in the graph
     for i in range(Tb):
-        c = step(c, emissions[:, i], t0 + i, n_frames, recs, i, rnn_base + i * R)
-    return c, recs
+        c = step(c, emissions[:, i], t, n_frames, recs, i, rnn_base + i * R)
+        t = t + 1
+    return c, recs, False
 
 
 def _best(lm, prep, c: Carry, cfg: BeamConfig, nfinal: int,
@@ -1253,6 +1350,7 @@ class TreeDecoder:
         self.cfg = dataclasses.replace(
             cfg, word_end_limit=min(cfg.word_end_limit, cfg.max_hyps * tree.max_word_ends)
         )
+        self._kept_step: Optional[_Step] = None
 
     def decode_scores(
         self,
@@ -1304,19 +1402,26 @@ class TreeDecoder:
                 beam_axis: Optional[str] = None) -> DeviceDecode:
         B, T, _M = emissions.shape
         pool = self.cfg.word_end_limit * T if self.rnn is not None else 0
-        with profiling.span("decode.dispatch", steps=T):
+        with profiling.span("decode.dispatch", steps=T) as span:
             step = self._step(mesh, beam_axis)
             carry = init_carry(B, self.cfg, self.lm, self.device, self.rnn, pool)
-            if profiling.profiler_recording():
-                step.marks = [_clock()]
-            carry, recs = _decode_block(step, carry, emissions, 0, n_frames)
+            carry, recs, graphed = _decode_block(step, carry, emissions, 0, n_frames)
+            span.counts["graph_steps"] = T if graphed else 0
             handle = self._finalize(carry, [recs], n_frames)
-            if step.marks is not None:
-                profiling.RECORDER.add_marked("decode.step", PHASES, step.marks)
         return handle
 
     def _step(self, mesh=None, beam_axis: Optional[str] = None) -> _Step:
-        """The frame step over this decoder's tables and beam. Over a beam
+        """The frame step of a decode or a stream. The unpartitioned step is
+        built once and kept, so that its CUDA graphs serve every later
+        decode and stream of their batch shape."""
+        if beam_axis is not None:
+            return self._new_step(mesh, beam_axis)
+        if self._kept_step is None:
+            self._kept_step = self._new_step()
+        return self._kept_step
+
+    def _new_step(self, mesh=None, beam_axis: Optional[str] = None) -> _Step:
+        """A frame step over this decoder's tables and beam. Over a beam
         partitioned P ways the root and branch limits apply per slice of
         K / P slots (the reference's rule: exact when they cover K)."""
         K = self.cfg.max_hyps

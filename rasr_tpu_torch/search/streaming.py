@@ -18,6 +18,11 @@ reference's ``_compact_rnn_carry``), so memory per stream stays fixed
 whatever its length; the finalize scores ``</s>`` from the live rows of
 the utterances it takes at the frontier.
 
+On a card each feed replays the decoder's kept CUDA graph of the frame
+step (``decoder._StepGraph``), its carry copied into the graph's static
+buffers at the block's start and out at its end; a fused stream runs
+eagerly.
+
 The reference pads its record buffers to 256-frame buckets to bound the
 finalize's XLA compiles; eager PyTorch compiles nothing per shape, so
 the port neither pads nor prewarms.
@@ -89,8 +94,8 @@ class StreamingDecoder:
             cfg = self.dec.cfg
             rnn_base = 2 * cfg.max_hyps
             self._carry = _compact_rnn_carry(self._carry, cfg.word_end_limit * emissions.shape[1])
-        self._carry, recs = _decode_block(self._step, self._carry, emissions, self._t,
-                                          self._n_frames, rnn_base)
+        self._carry, recs, _ = _decode_block(self._step, self._carry, emissions, self._t,
+                                             self._n_frames, rnn_base)
         self._recs.append(recs)
         self._t += emissions.shape[1]
         return self

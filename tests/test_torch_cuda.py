@@ -54,7 +54,9 @@ from rasr_tpu_torch.search.wfst import compile_wfst  # noqa: E402
 from rasr_tpu_torch.models.lm.rnn import RnnLm  # noqa: E402
 from rasr_tpu_torch.search.rnn_fusion import build_rnn_fusion  # noqa: E402
 from rasr_tpu_torch.search.streaming import StreamingDecoder  # noqa: E402
-from rasr_tpu_torch.synthetic import PATHS, build_setup  # noqa: E402
+from rasr_tpu_torch.synthetic import (  # noqa: E402
+    PATHS, PRODUCTION_BEAM, SLICE_A_BEAM, build_setup,
+)
 from rasr_tpu_torch.align.aligner import BatchAligner  # noqa: E402
 from rasr_tpu_torch.align.graph import build_linear_graph  # noqa: E402
 from rasr_tpu_torch.models.hmm import HmmTopology  # noqa: E402
@@ -322,6 +324,121 @@ def test_streamed_equals_offline_on_card(card):
     assert [r.words for r in got] == [r.words for r in want]
     assert [r.word_ends for r in got] == [r.word_ends for r in want]
     np.testing.assert_allclose([r.score for r in got], [r.score for r in want], rtol=1e-6)
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh process span recorder for the test."""
+    from rasr_tpu_torch.utils import profiling
+
+    rec = profiling.Recorder()
+    monkeypatch.setattr(profiling, "RECORDER", rec)
+    return rec
+
+
+def _noise_scores(s, card, batch, samples, seed):
+    """Emission scores of ragged noise (the longest ``samples``) through
+    the setup's frontend and scorer, and their frame counts."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(batch, samples)) * 0.1).astype(np.float32)).to(card)
+    lengths = torch.from_numpy(rng.integers(samples // 3, samples + 1, size=batch)).to(card)
+    lengths[0] = samples
+    feats, n = s.frontend(x, lengths)
+    return s.scorer(feats), n
+
+
+def _assert_graphed_equals_eager(decoder, e, n, graphed=None):
+    """The decode's handle (replaying the frame step's CUDA graph) against
+    ``profile_decode``'s eager decode of the same scores: words, scores,
+    the six record columns, the finals and their best, bit for bit."""
+    from rasr_tpu_torch.examples.profile_decode import marked_decode
+
+    got = graphed or decoder.decode_scores_device(e, n)
+    want = marked_decode(decoder, e, n)
+    for a, b in zip(got.records, want.records):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(got.finals, want.finals):
+        assert torch.equal(a, b)
+    for a, b in ((got.best_score, want.best_score), (got.best_bp, want.best_bp),
+                 (got.end_cost, want.end_cost)):
+        assert torch.equal(a, b)
+    ra, rb = decoder.results_from_device(got), decoder.results_from_device(want)
+    assert any(r.words for r in rb)
+    assert [(r.words, r.word_ends, r.score) for r in ra] == [
+        (r.words, r.word_ends, r.score) for r in rb]
+
+
+#: the decode paths whose graphed frame step is held to the eager one
+GRAPHED = {"production": dict(beam=PRODUCTION_BEAM), "slice-a": dict(beam=SLICE_A_BEAM),
+           "across-word": dict(beam=PRODUCTION_BEAM, **PATHS["across-word"])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(GRAPHED))
+def test_graphed_decode_equals_eager_on_card(card, path, recorder):
+    """64 ragged utterances of up to 4 s under the full-width beams: the
+    decode replays the frame step's CUDA graph for every frame, and equals
+    the eager step's decode bit for bit."""
+    s = build_setup(num_words=600, num_classes=400, densities=2, device=card, **GRAPHED[path])
+    e, n = _noise_scores(s, card, 64, 64000, 11)
+    _assert_graphed_equals_eager(s.decoder, e, n)
+    (dispatch,) = recorder.records("decode.dispatch")
+    assert dispatch.counts == {"steps": e.shape[1], "graph_steps": e.shape[1]}
+    assert len(recorder.records("decode.capture")) == 1
+
+
+@pytest.mark.cuda
+def test_graph_reused_across_batches_and_streams_on_card(card, recorder):
+    """One capture per batch shape: two batches of other lengths and a
+    stream fed 16-frame blocks replay the graph the first decode captured,
+    each equal to the eager decode bit for bit; every dispatched frame is
+    replayed (``graph_steps == steps``)."""
+    s = build_setup(num_words=600, num_classes=400, densities=2, device=card,
+                    beam=PRODUCTION_BEAM)
+    for samples, seed in ((48000, 12), (20000, 13)):
+        e, n = _noise_scores(s, card, 16, samples, seed)
+        _assert_graphed_equals_eager(s.decoder, e, n)
+    sd = StreamingDecoder(s.decoder).restart(16, n)
+    for lo in range(0, e.shape[1], 16):
+        sd.feed(e[:, lo:lo + 16])
+    _assert_graphed_equals_eager(s.decoder, e, n, graphed=sd.finalize_device())
+    assert list(s.decoder._step()._graphs) == [(16, e.shape[2])]
+    assert len(recorder.records("decode.capture")) == 1
+    spans = recorder.records("decode.dispatch")
+    assert len(spans) == 2 and all(sp.counts["graph_steps"] == sp.counts["steps"] > 0
+                                   for sp in spans)
+
+
+class _TwoWayBeam:
+    """A mesh whose beam axis has two ranks, this one the first."""
+
+    def __getitem__(self, axis):
+        return self
+
+    def size(self):
+        return 2
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+@pytest.mark.cuda
+def test_partitioned_beam_runs_eagerly_on_card(card, recorder, monkeypatch):
+    """A beam partitioned two ways (its collectives stood in for by their
+    one-process forms) runs the frame step eagerly: ``graph_steps`` 0."""
+    from rasr_tpu_torch.search import decoder as tdec
+
+    monkeypatch.setattr(tdec, "all_reduce", lambda x, mesh, axis, op="sum": x)
+    monkeypatch.setattr(tdec, "all_gather", lambda x, mesh, axis, dim=0: torch.cat([x, x], dim))
+    s = build_setup(num_words=200, num_classes=200, densities=2, device=card,
+                    beam=BeamConfig(max_hyps=64, word_end_limit=16, root_hyps=8,
+                                    branch_hyps=16, lm_scale=10.0))
+    e, n = _noise_scores(s, card, 4, 16000, 14)
+    handle = s.decoder._decode(e, n, mesh=_TwoWayBeam(), beam_axis="model")
+    assert any(r.words for r in s.decoder.results_from_device(handle))
+    (dispatch,) = recorder.records("decode.dispatch")
+    assert dispatch.counts == {"steps": e.shape[1], "graph_steps": 0}
+    assert recorder.records("decode.capture") == []
 
 
 @pytest.mark.cuda

@@ -37,7 +37,7 @@ from rasr_tpu.search.tree import build_prefix_tree as jax_build_prefix_tree
 from rasr_tpu_torch import convert
 from rasr_tpu_torch.models.lm.ngram import compile_ngram
 from rasr_tpu_torch.search.decoder import (
-    BeamConfig, TreeDecoder, _Step, traceback, tree_to_device,
+    BeamConfig, TreeDecoder, _record_block, _Step, init_carry, traceback, tree_to_device,
 )
 from rasr_tpu_torch.search.lookahead import build_bigram_lookahead
 from rasr_tpu_torch.search.tree import build_prefix_tree
@@ -436,6 +436,60 @@ SLICE_C = {
                                                         lookahead_update="survivor")),
     "trigram-4gram-two-key": ("4gram", "trigram", dict(_ACROSS, force_unpacked_keys=True)),
 }
+
+
+def _int_indexed(decoder, emis, n):
+    """The frame step driven with Python ints for the frame index and the
+    record row, frame by frame into the records: (final carry, records)."""
+    step = decoder._new_step()
+    B, T, _ = emis.shape
+    c = init_carry(B, decoder.cfg, decoder.lm, "cpu")
+    _, recs = _record_block(T, B, decoder.cfg.word_end_limit, "cpu")
+    for i in range(T):
+        c = step(c, emis[:, i], i, n, recs, i)
+    return c, recs
+
+
+#: parity cases of every family, rerun with the frame index as an int
+INT_INDEXED = {**{f"binding-{k}": ("binding", k) for k in sorted(BINDING)},
+               **{f"slice-b-{k}": ("slice_b", k) for k in ("bench-canary-config",
+                                                           "expansion-limit")},
+               **{f"slice-c-{k}": ("slice_c", k) for k in (
+                   "across-word-production", "bigram-arc-production", "survivor-across-word",
+                   "trigram-4gram-two-key")}}
+
+
+@pytest.mark.parametrize("case", sorted(INT_INDEXED))
+def test_device_frame_index_equals_int_indexed(rich_setup, slice_b_systems, slice_c_systems,
+                                               case):
+    """The decode drives the frame step with the frame index as a device
+    scalar, as the CUDA graph replays it: every record and final equals
+    the step's driven with ints, bit for bit, on the parity cases' draws."""
+    family, name = INT_INDEXED[case]
+    bla = None
+    if family == "binding":
+        _, tying, lm, _, ttree = rich_setup
+        kw, num_classes = BINDING[name], tying.num_classes
+    elif family == "slice_b":
+        homophones, kw = SLICE_B[name]
+        tying, lm, _, ttree, _ = slice_b_systems[homophones]
+        num_classes = tying.num_classes
+    else:
+        network, la, kw = SLICE_C[name]
+        lm, (_, ttree), las = slice_c_systems[network]
+        bla, num_classes = las[la][1] if la else None, 20011
+    rng = np.random.default_rng(400 + sorted(INT_INDEXED).index(case))
+    emis = torch.from_numpy(rng.uniform(0.0, 6.0, size=(3, 14, num_classes)).astype(np.float32))
+    n = torch.tensor([14, 11, 9])
+    decoder = TreeDecoder(ttree, compile_ngram(lm), BeamConfig(**kw), bigram_la=bla,
+                          device="cpu")
+    handle = decoder.decode_scores_device(emis, n)
+    carry, recs = _int_indexed(decoder, emis, n)
+    assert int((handle.records.lemma >= 0).sum()) > 0
+    for got, want in zip(handle.records, recs):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    for got, want in zip(handle.finals, carry):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name", sorted(SLICE_C))

@@ -1,9 +1,9 @@
 """The port's span recorder (``rasr_tpu_torch/utils/profiling.py``): spans
 and their nesting, the bound per name, the accumulators, the Chrome
 export, the clock against ``torch.profiler``'s; the spans the layers
-record; the decoder's phase marks, present only under the profiler and
-changing nothing the decode returns; and the benchmark's readers of the
-spans."""
+record; the decoder's phase marks, made only by ``profile_decode``'s eager
+step and changing nothing the decode returns; and the benchmark's readers
+of the spans."""
 
 import dataclasses
 import json
@@ -153,44 +153,90 @@ def _tiny_setup():
                                  beam=beam)
 
 
-def test_decoder_phase_marks_only_under_the_profiler(recorder):
-    s = _tiny_setup()
+def _tiny_decode_inputs():
     g = torch.Generator().manual_seed(0)
-    em = torch.rand(2, 30, 50, generator=g) * 5
-    nf = torch.tensor([30, 22])
+    return torch.rand(2, 30, 50, generator=g) * 5, torch.tensor([30, 22])
+
+
+def _decoded(decoder, handle):
+    res = decoder.results_from_device(handle)
+    return ([(r.words, r.word_ends, r.score, r.record_ids) for r in res],
+            handle.records_to_host())
+
+
+def _assert_same_decode(got, want):
+    assert got[0] == want[0]
+    for a, b in zip(got[1].records + got[1].finals, want[1].records + want[1].finals):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_decoder_phase_marks_only_under_the_profiler(recorder):
+    """The program's decode never marks phases, under the profiler or not
+    (the profiler leaves the decode's path as it is); the marks come from
+    ``profile_decode``'s eager step (the test below)."""
+    s = _tiny_setup()
+    em, nf = _tiny_decode_inputs()
 
     def decode():
-        handle = s.decoder.decode_scores_device(em, nf)
-        res = s.decoder.results_from_device(handle)
-        return ([(r.words, r.word_ends, r.score, r.record_ids) for r in res],
-                handle.records_to_host())
+        return _decoded(s.decoder, s.decoder.decode_scores_device(em, nf))
 
     plain = decode()
     assert recorder.records("decode.step") == []
     (dispatch,) = recorder.records("decode.dispatch")
-    assert dispatch.counts == {"steps": 30} and not dispatch.profiled
+    assert dispatch.counts == {"steps": 30, "graph_steps": 0} and not dispatch.profiled
     (read,) = recorder.records("decode.read")
     (wait,) = recorder.records("decode.read.wait")
     assert wait.parent == read.id and read.start_ns <= wait.start_ns <= wait.end_ns <= read.end_ns
     with profile(activities=[ProfilerActivity.CPU]):
         traced = decode()
     assert any(words for words, *_ in plain[0])
-    assert traced[0] == plain[0]
-    for a, b in zip(traced[1].records + traced[1].finals, plain[1].records + plain[1].finals):
-        np.testing.assert_array_equal(a, b)
+    _assert_same_decode(traced, plain)
+    assert recorder.records("decode.step") == []
+    assert recorder.records("decode.dispatch")[-1].profiled
+
+
+def test_profile_decode_marks_phases_in_order(recorder):
+    """``profile_decode.marked_decode``: the eager step's marks make one
+    ``decode.step`` span a frame with a child per phase in ``PHASES``
+    order, end to end, and the decode equals the program's."""
+    from rasr_tpu_torch.examples import profile_decode
+
+    s = _tiny_setup()
+    em, nf = _tiny_decode_inputs()
+    plain = _decoded(s.decoder, s.decoder.decode_scores_device(em, nf))
+    marked = _decoded(s.decoder, profile_decode.marked_decode(s.decoder, em, nf))
+    _assert_same_decode(marked, plain)
     steps = recorder.records("decode.step")
-    dispatch = recorder.records("decode.dispatch")[-1]
-    assert dispatch.profiled and len(steps) == 30
-    assert all(sp.parent == dispatch.id and sp.profiled for sp in steps)
+    assert len(steps) == 30 and all(sp.parent is None for sp in steps)
     for phase in tdec.PHASES:
         children = recorder.records(f"decode.step.{phase}")
         assert [c.parent for c in children] == [sp.id for sp in steps]
     assert len(tdec.PHASES) == 9
-    first = steps[0]
-    kids = [recorder.records(f"decode.step.{p}")[0] for p in tdec.PHASES]
-    assert kids[0].start_ns == first.start_ns and kids[-1].end_ns == first.end_ns
-    assert all(a.end_ns == b.start_ns for a, b in zip(kids, kids[1:]))
-    assert dispatch.start_ns <= first.start_ns and steps[-1].end_ns <= dispatch.end_ns
+    for k, step in enumerate(steps):
+        kids = [recorder.records(f"decode.step.{p}")[k] for p in tdec.PHASES]
+        assert kids[0].start_ns == step.start_ns and kids[-1].end_ns == step.end_ns
+        assert all(a.end_ns == b.start_ns for a, b in zip(kids, kids[1:]))
+    assert all(a.end_ns == b.start_ns for a, b in zip(steps, steps[1:]))
+    # the program's decode kept its step: the marked one was its own
+    assert s.decoder._step().marks is None
+
+
+def test_no_frame_step_replays_a_graph_on_the_cpu(recorder):
+    """``graph_steps`` counts the frames replayed from a CUDA graph: none on
+    the CPU, where the step runs eagerly (offline, streamed and marked)."""
+    from rasr_tpu_torch.search.streaming import StreamingDecoder
+
+    s = _tiny_setup()
+    em, nf = _tiny_decode_inputs()
+    s.decoder.decode_scores_device(em, nf)
+    s.decoder.decode_scores_device(em[:, :20], nf.clamp(max=20))
+    assert [sp.counts for sp in recorder.records("decode.dispatch")] == [
+        {"steps": 30, "graph_steps": 0}, {"steps": 20, "graph_steps": 0}]
+    sd = StreamingDecoder(s.decoder).restart(2, nf)
+    sd.feed(em[:, :16])
+    step = s.decoder._step()
+    assert sd._step is step and step.graph_for(em) is None and step._graphs == {}
+    assert recorder.records("decode.capture") == []
 
 
 def _align_setup():
@@ -225,17 +271,22 @@ def test_aligner_and_graph_spans(recorder):
 #: every span the port records, and what reads it: the benchmark's readers
 #: (benchmark/metrics/) or examples/profile_decode.py
 READ_SPANS = {"decode.dispatch", "decode.read", "decode.read.wait", "align.viterbi",
-              "align.read", "align.graph", "decode.step",
+              "align.read", "align.graph", "decode.capture", "decode.step",
               *(f"decode.step.{p}" for p in tdec.PHASES)}
+#: the spans recorded on a card only (tests/test_torch_cuda.py)
+CARD_SPANS = {"decode.capture"}
 
 
 def test_every_recorded_span_has_a_reader(recorder):
+    from rasr_tpu_torch.examples import profile_decode
+
     s = _tiny_setup()
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 4000)).astype(np.float32))
     feats, nf = s.frontend(x, torch.tensor([4000, 3000]))
     with profile(activities=[ProfilerActivity.CPU]):
         handle = s.decoder.decode_scores_device(s.scorer(feats), nf)
         s.decoder.results_from_device(handle)
+    profile_decode.marked_decode(s.decoder, s.scorer(feats)[:, :5], nf.clamp(max=5))
     ms, graphs, afeats = _align_setup()
     als = tal.BatchAligner(tscorer.GmmFeatureScorer(ms, device="cpu")).align(
         afeats, graphs, np.array([10, 12]))
@@ -245,7 +296,7 @@ def test_every_recorded_span_has_a_reader(recorder):
     for i, a in enumerate(als):
         labels[i, : a.num_frames] = a.emission_ids
     em.accumulate(em.GmmAccumulator.zeros(*ms.means.shape), ms, afeats, labels, device="cpu")
-    assert set(recorder.report()) == READ_SPANS
+    assert set(recorder.report()) == READ_SPANS - CARD_SPANS
 
 
 def test_span_cost_on_a_tiny_setup(recorder):
@@ -257,16 +308,16 @@ def test_span_cost_on_a_tiny_setup(recorder):
     assert len(out["off"]["host_us_per_step"]["values"]) == 2
     assert len(out["off"]["dispatch_span_us_per_step"]["values"]) == 2
     assert len(out["off"]["read_wait_us"]["values"]) == 2
-    assert [len(out["on"][k]["values"]) for k in ("marks", "no_marks")] == [1, 1]
-    # only the decode with the marks made steps; the patch is undone
-    assert len(recorder.records("decode.step")) == 10
+    assert len(out["on"]["values"]) == 1
+    # the profiled decode runs the program's path: no phase marks
+    assert recorder.records("decode.step") == []
     assert profiling.profiler_recording is recording
     assert all(v > 0 for v in out["off"]["host_us_per_step"]["values"])
 
 
 # ------------------------------------------------- the benchmark's readers
 READERS = ("decoder.host_us_per_step", "results.wait_share", "aligner.host_us_per_frame",
-           "graphs.host_us_per_utterance")
+           "graphs.host_us_per_utterance", "decoder.graph_share")
 
 
 def _plant(rec, name, us, profiled=False, parent=None, **counts):
@@ -306,3 +357,16 @@ def test_readers_on_planted_spans(recorder):
     assert got["results.wait_share"] == pytest.approx(100 * 60 / (13000 + 150))
     assert got["aligner.host_us_per_frame"] == pytest.approx(190.0)  # of 150, 220, 190
     assert got["graphs.host_us_per_utterance"] == pytest.approx(850.0)
+
+
+def test_graph_share_on_planted_spans(recorder):
+    """``decoder.graph_share``: replayed frames over frames, summed over the
+    unprofiled dispatch spans; spans without the count (a program without
+    the graph) are not read."""
+    read = spec.reader("decoder.graph_share")
+    _plant(recorder, "decode.dispatch", 4000.0, steps=1000)
+    assert read({}) is None
+    for us, steps, graphed in ((4000.0, 300, 300), (2000.0, 1000, 1000), (3000.0, 700, 0)):
+        _plant(recorder, "decode.dispatch", us, steps=steps, graph_steps=graphed)
+    _plant(recorder, "decode.dispatch", 99e6, profiled=True, steps=10, graph_steps=0)
+    assert read({}) == pytest.approx(100.0 * 1300 / 2000)
