@@ -15,7 +15,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
-from ..system import conformer_param_specs
+from ..models.conformer import conformer_param_specs
 from . import Work
 
 

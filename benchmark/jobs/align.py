@@ -2,11 +2,13 @@
 
 Per batch, as the port's trainer chains it: the transcripts' linear graphs
 (``align/graph.py::build_linear_graph``, on the host), ``FeatureFrontend``,
-the GMM scores, ``BatchAligner.align_scores`` and ``train/em.py::accumulate``
-of the alignment's labels into one accumulator for the window. The rate is
-the aligned and accumulated audio over the window, which ends when the last
-batch's statistics are on the host. The per-corpus re-estimation is left
-out.
+the model's scores, ``BatchAligner.align_scores`` and
+``train/em.py::accumulate`` of the alignment's labels into one accumulator
+for the window. The rate is the aligned and accumulated audio over the
+window, which ends when the last batch's statistics are on the host. The
+per-corpus re-estimation is left out. EM statistics are a GMM's: the
+configuration's model (``benchmark/models/<scorer>.py``) has to give the
+mixtures they accumulate into.
 
 After the window a sample of the alignments, drawn from the seed and
 holding a longest transcript, is held to the reference's best alignment of
@@ -24,14 +26,12 @@ import time
 import numpy as np
 import torch
 
-from .. import system, trace, traffic
+from .. import spec, system, trace, traffic
 from ..counts import Work
 from ..counts import frontend as frontend_counts
-from ..counts import gmm as gmm_counts
 from ..reference import align as ralign
 from ..reference import decode as rdec
 from ..reference import frontend as rfe
-from ..reference import gmm as rgmm
 from ..reference.precision import QUANT
 
 SPANS = ("graphs", "frontend", "scorer", "aligner", "accumulate")
@@ -41,17 +41,20 @@ WARMUP_INDEX = 1 << 30
 def run(r) -> dict:
     from rasr_tpu_torch.align.aligner import BatchAligner
     from rasr_tpu_torch.align.graph import build_linear_graph
-    from rasr_tpu_torch.models.gmm import MixtureSet
     from rasr_tpu_torch.train import em
 
     cfg, t, dev = r.cfg, r.traffic, r.device
     sr = cfg["sample_rate"]
+    am = spec.model(cfg)
+    if not hasattr(am, "mixtures"):
+        raise ValueError(f"the align job accumulates GMM statistics, and the acoustic model "
+                         f"{cfg['scorer']!r} has no mixtures (benchmark/models/"
+                         f"{cfg['scorer']}.py has no mixtures())")
     d = system.draw(cfg, r.seed)
-    s = system.build(cfg, d, dev, decoder=False)
+    s = system.build(cfg, d, dev, am.weights(cfg, r.seed, dev), decoder=False)
     lex, topo, trans, tying = system.port_lexicon(cfg, d)
-    M, K, D = d.gmm["means"].shape
-    mixtures = MixtureSet(d.gmm["means"], d.gmm["variances"], d.gmm["weights"],
-                          np.full(M, K, np.int32))
+    mixtures = am.mixtures(cfg, d)
+    M, K, D = mixtures.means.shape
     aligner = BatchAligner(s.scorer)
     vocab_words = [w for w, _ in d.words]
 
@@ -115,7 +118,7 @@ def run(r) -> dict:
            "attempted": utts, "memory_peak_bytes": peak}
     window_work = Work()
     for n, fr in zip(samples, frames):
-        window_work = window_work + frontend_counts.work(n, fr, cfg) + gmm_counts.work(sum(fr), cfg)
+        window_work = window_work + frontend_counts.work(n, fr, cfg) + am.forward_work(fr, cfg)
     layer = {"window": {"align": (window_work, window_s)}}
     if r.trace:
         with trace.profiled() as prof:
@@ -123,7 +126,7 @@ def run(r) -> dict:
         layer["summary"] = trace.summarize(prof, SPANS)
         fr = [a.num_frames for a in als]
         layer["work"] = {"frontend": frontend_counts.work(n, fr, cfg),
-                         "scorer": gmm_counts.work(sum(fr), cfg)}
+                         "scorer": am.forward_work(fr, cfg)}
         layer["steps"] = {"aligner": max(fr)}
     out["layer"] = layer
 
@@ -138,6 +141,7 @@ def run(r) -> dict:
 def check(r, d, kept, longest, stats_batch, labels, delta) -> dict:
     cfg, t, dev = r.cfg, r.traffic, r.device
     sr = cfg["sample_rate"]
+    am = spec.model(cfg)
     model = rdec.Model(cfg, d.words, d.vocab, d.ngrams)
     quant = QUANT[r.control] if r.control else None
     var_floor = cfg["gmm"]["var_floor"]
@@ -161,12 +165,12 @@ def check(r, d, kept, longest, stats_batch, labels, delta) -> dict:
         orth, al = kept[(b, row)]
         x, _, n = traffic.audio_batch(t, sr, r.seed, b, dev)
         rf, pf = reference(x[row, : n[row]])
-        re = rgmm.scores(rf, d.gmm, var_floor).cpu().numpy()
+        re = am.reference_scores(rf, d, None, cfg).cpu().numpy()
         g = ralign.chain(model, orth)
         ref_best, _ = ralign.best(*g, re)
         score, path = al.score, al.state_indices
         if quant is not None:  # the reference in a lower precision, in the program's place
-            pe = rgmm.scores_lowered(pf, d.gmm, var_floor, quant).double().cpu().numpy()
+            pe = am.reference_scores(pf, d, None, cfg, quant).double().cpu().numpy()
             score, path = ralign.best(*g, pe)
         elif not np.array_equal(np.asarray(al.emission_ids), g[0][path]):
             score = math.inf  # not this graph's path
@@ -187,9 +191,10 @@ def check(r, d, kept, longest, stats_batch, labels, delta) -> dict:
         low_feats.append(pf)
         lab.append(labels[row, : rf.shape[0]])
     lab = torch.cat(lab)
-    ref = [v.cpu().numpy() for v in ralign.statistics(torch.cat(ref_feats), lab, d.gmm, var_floor)]
+    ref = [v.cpu().numpy()
+           for v in ralign.statistics(torch.cat(ref_feats), lab, d.acoustic, var_floor)]
     got = delta if quant is None else [v.cpu().numpy() for v in ralign.statistics(
-        torch.cat(low_feats), lab, d.gmm, var_floor)]
+        torch.cat(low_feats), lab, d.acoustic, var_floor)]
     stats_gap = max(float(np.abs(g_ - w).max() / np.abs(w).max()) for g_, w in zip(got, ref))
     failed += int(limits["stats_gap"] is None or stats_gap > limits["stats_gap"])
     print(f"[align] checked {len(picks)} alignments and the statistics of batch {stats_batch}",

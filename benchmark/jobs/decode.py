@@ -2,7 +2,8 @@
 
 The window drives the port's batch-decode entry in the order its
 ``OfflineRecognizer`` and ``bench.py`` call it: ``FeatureFrontend``, the
-scorer (``GmmFeatureScorer`` or ``NnHybridScorer.score(feats, lengths)``),
+configuration's model's scorer (``benchmark/models/<scorer>.py``, called
+as ``score(feats, lengths)``),
 ``TreeDecoder.decode_scores_device`` and ``results_from_device``, with
 batches dispatched two deep: batch n + 1 is dispatched before batch n's
 results are read. The window ends at the last batch's read; its rate is
@@ -28,15 +29,11 @@ import time
 import numpy as np
 import torch
 
-from .. import system, trace, traffic
+from .. import spec, system, trace, traffic
 from ..counts import Work
-from ..counts import conformer as conformer_counts
 from ..counts import frontend as frontend_counts
-from ..counts import gmm as gmm_counts
-from ..reference import conformer as rconf
 from ..reference import decode as rdec
 from ..reference import frontend as rfe
-from ..reference import gmm as rgmm
 from ..reference import search as rsearch
 from ..reference.precision import QUANT, bf16_round
 
@@ -45,21 +42,13 @@ SPANS = ("frontend", "scorer", "decoder", "results")
 WARMUP_INDEX = 1 << 30
 
 
-def scorer_work(cfg: dict, frames) -> Work:
-    if cfg["scorer"] == "gmm":
-        return gmm_counts.work(int(sum(frames)), cfg)
-    return conformer_counts.forward_work(frames, cfg)
-
-
 def run(r) -> dict:
     """One run of a decode cell."""
     cfg, t, dev = r.cfg, r.traffic, r.device
     sr = cfg["sample_rate"]
+    am = spec.model(cfg)
     d = system.draw(cfg, r.seed)
-    weights = None
-    if cfg["scorer"] == "conformer":
-        weights = system.draw_conformer(cfg, cfg["frontend"]["feat_dim"],
-                                        cfg["tying"]["num_classes"], r.seed, dev)
+    weights = am.weights(cfg, r.seed, dev)
     s = system.build(cfg, d, dev, weights)
 
     def dispatch(x, lengths):
@@ -126,7 +115,7 @@ def run(r) -> dict:
 
     window_work = Work()
     for n, fr in zip(samples, frames):
-        window_work = window_work + frontend_counts.work(n, fr, cfg) + scorer_work(cfg, fr)
+        window_work = window_work + frontend_counts.work(n, fr, cfg) + am.forward_work(fr, cfg)
     layer = {"window": {"decode": (window_work, window_s)}}
     if r.trace:
         x, lengths, n = traffic.audio_batch(t, sr, r.seed, i, dev)
@@ -136,7 +125,8 @@ def run(r) -> dict:
         t1 = time.perf_counter()
         layer["summary"] = trace.summarize(prof, SPANS)
         print(f"[decode] trace read in {time.perf_counter() - t1:.1f} s", file=sys.stderr)
-        layer["work"] = {"frontend": frontend_counts.work(n, fr, cfg), "scorer": scorer_work(cfg, fr)}
+        layer["work"] = {"frontend": frontend_counts.work(n, fr, cfg),
+                         "scorer": am.forward_work(fr, cfg)}
         layer["steps"] = {"decoder": max(fr)}
         del x, lengths
     out["layer"] = layer
@@ -153,13 +143,13 @@ def check(r, d, weights, kept, longest, results, frames) -> dict:
     """Hold a sample of the window's utterances, with the first batch's
     longest, to the reference."""
     cfg, dev = r.cfg, r.device
+    am = spec.model(cfg)
     rng = np.random.default_rng(traffic.sub_seed(r.seed, 5))
     rest = sorted(k for k in kept if k != longest)
     n_check = min(r.traffic["check_utterances"] - 1, len(rest))
     picks = [longest] + [rest[j] for j in rng.choice(len(rest), n_check, replace=False)]
     model = rdec.Model(cfg, d.words, d.vocab, d.ngrams)
     loop = rsearch.WordLoop(model, d.words, dev)
-    log_priors = None if d.prior_counts is None else rconf.log_priors(d.prior_counts, dev)
     quant = QUANT[r.control] if r.control else None
     gaps = {"features_max_abs": 0.0, "emissions_max_abs": 0.0, "score_gap": 0.0,
             "search_gap": 0.0}
@@ -171,17 +161,11 @@ def check(r, d, weights, kept, longest, results, frames) -> dict:
         res = results[b][row]
         x = audio.cpu().numpy()
         rf = torch.from_numpy(rfe.features(x, d.lda, cfg)).to(dev)
-        if cfg["scorer"] == "gmm":
-            re = rgmm.scores(rf, d.gmm, cfg["gmm"]["var_floor"])
-        else:
-            re = rconf.scores(rf.float(), weights, log_priors, cfg)
+        re = am.reference_scores(rf, d, weights, cfg)
         score, lemmas, ends = res.score, [lemma.primary_orth for lemma in res.lemmas], res.word_ends
         if quant is not None:  # the reference in a lower precision, in the program's place
             pf = rfe.features_lowered(audio, d.lda, cfg, QUANT["tf32"])
-            if cfg["scorer"] == "gmm":
-                pe = rgmm.scores_lowered(pf, d.gmm, cfg["gmm"]["var_floor"], quant)
-            else:
-                pe = rconf.scores(pf, weights, log_priors, cfg, quant)
+            pe = am.reference_scores(pf, d, weights, cfg, quant)
             score, lemmas, ends = loop.best(pe[:nfr], bf16_round)
         emis = pe[:nfr].double()
         best, best_words, _ = loop.best(emis)

@@ -1,12 +1,13 @@
-"""Cross-entropy training of the conformer from resident feature chunks.
+"""Cross-entropy training of the configuration's network from resident
+feature chunks.
 
-Set-up builds one ``SequenceTrainer`` over the port's
-``ConformerEncoderNet`` from the drawn weights and drives it through its
-first steps with the window's own call (``_update``) on distinct batches
-of the pool; the window then goes on with the same object over the pool,
-round robin. Every step trains ``batch`` x ``frames`` frames; the rate is
-all frames trained in the window over its length, which ends in a
-synchronize.
+Set-up builds one ``SequenceTrainer`` over the port's network of the
+configuration's model (``benchmark/models/<scorer>.py::net``) from the
+drawn weights and drives it through its first steps with the window's own
+call (``_update``) on distinct batches of the pool; the window then goes
+on with the same object over the pool, round robin. Every step trains
+``batch`` x ``frames`` frames; the rate is all frames trained in the
+window over its length, which ends in a synchronize.
 
 The plain reference follows the first steps: each step's loss, the first
 gradient per parameter (the momentum buffer after step one), and each
@@ -21,35 +22,39 @@ import time
 
 import torch
 
-from .. import system, trace, traffic
-from ..counts import conformer as conformer_counts
+from .. import spec, trace, traffic
 from ..reference import train as rtrain
 
 SPANS = ("train_step",)
 
 
+def model(cfg: dict):
+    """The configuration's model module, which has to have a network."""
+    am = spec.model(cfg)
+    if not hasattr(am, "net"):
+        raise ValueError(f"the train job trains a network, and the acoustic model "
+                         f"{cfg['scorer']!r} has none (benchmark/models/{cfg['scorer']}.py "
+                         f"has no net())")
+    return am
+
+
 def build(cfg: dict, weights, device):
     """The port's trainer over the drawn weights."""
-    from rasr_tpu_torch.models.nn import ConformerEncoderNet
     from rasr_tpu_torch.train.nn_trainer import SequenceTrainer, TrainConfig
 
-    c, M = cfg["conformer"], cfg["tying"]["num_classes"]
-    net = ConformerEncoderNet(M, cfg["frontend"]["feat_dim"], d_model=c["d_model"],
-                              num_blocks=c["num_blocks"], num_heads=c["num_heads"],
-                              ff_mult=c["ff_mult"], conv_kernel=c["conv_kernel"],
-                              compute_dtype=c["compute_dtype"], device=device)
-    with torch.no_grad():
-        net.load_state_dict(weights, strict=True)
+    net = model(cfg).net(cfg, weights, device)
     tc = cfg["train"]
-    return SequenceTrainer(net, M, TrainConfig(optimizer=tc["optimizer"],
-                                               learning_rate=tc["learning_rate"],
-                                               momentum=tc["momentum"], l2=tc["l2"]))
+    return SequenceTrainer(net, cfg["tying"]["num_classes"],
+                           TrainConfig(optimizer=tc["optimizer"],
+                                       learning_rate=tc["learning_rate"],
+                                       momentum=tc["momentum"], l2=tc["l2"]))
 
 
 def run(r) -> dict:
     cfg, t, dev = r.cfg, r.traffic, r.device
     D, M = cfg["frontend"]["feat_dim"], cfg["tying"]["num_classes"]
-    weights = system.draw_conformer(cfg, D, M, r.seed, dev)
+    am = model(cfg)
+    weights = am.weights(cfg, r.seed, dev)
     trainer = build(cfg, weights, dev)
     pool = traffic.chunk_pool(t, D, M, r.seed, dev)
     first = t["first_steps"]
@@ -85,7 +90,7 @@ def run(r) -> dict:
     frames = n_steps * t["batch"] * t["frames"]
     print(f"[train] {n_steps} steps, {frames} frames in {window_s:.2f} s: "
           f"{frames / window_s:.1f} frames/s; set-up {setup_s:.2f} s", file=sys.stderr)
-    work = conformer_counts.train_step_work(t["batch"], t["frames"], cfg)
+    work = am.train_step_work(t["batch"], t["frames"], cfg)
     step_work = work
     for _ in range(n_steps - 1):
         work = work + step_work
@@ -119,9 +124,10 @@ def check(r, weights, losses, grad1, after, names) -> dict:
     cfg, t, dev = r.cfg, r.traffic, r.device
     D, M = cfg["frontend"]["feat_dim"], cfg["tying"]["num_classes"]
     pool = traffic.chunk_pool(t, D, M, r.seed, dev)[: len(losses)]
-    ref_losses, ref_grad, ref_change = rtrain.steps(weights, pool, cfg)
+    logits = model(cfg).reference_logits
+    ref_losses, ref_grad, ref_change = rtrain.steps(logits, weights, pool, cfg)
     if r.control:  # the reference in a lower precision, in the program's place
-        losses, grad1, change = rtrain.steps(weights, pool, cfg, r.control)
+        losses, grad1, change = rtrain.steps(logits, weights, pool, cfg, r.control)
     else:
         change = {n: after[n] - weights[n] for n in names}
     # leaves whose reference gradient is nought to rounding move by round-off alone

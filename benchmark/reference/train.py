@@ -1,7 +1,8 @@
-"""Cross-entropy training steps of the conformer, in plain PyTorch.
+"""Cross-entropy training steps of a network, in plain PyTorch.
 
 The loss of a step is the mean per-frame cross entropy of the model's
-logits (``reference/conformer.py``, float32, TF32 off) against the frame
+logits (the model's plain reference, given as a function, such as
+``reference/conformer.py::logits``: float32, TF32 off) against the frame
 labels; the gradient comes from autograd, one utterance at a time, and
 the update is SGD with heavy-ball momentum (buffer = momentum * buffer +
 gradient, parameter -= learning rate * buffer; the buffer starts at the
@@ -15,7 +16,6 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from . import conformer as rconf
 from .precision import QUANT
 
 
@@ -40,10 +40,12 @@ def rounded(name: Optional[str]) -> Optional[Callable]:
     return lambda x: _Rounded.apply(x, fn)
 
 
-def steps(weights: Dict[str, torch.Tensor], batches: List, cfg: dict,
+def steps(logits: Callable, weights: Dict[str, torch.Tensor], batches: List, cfg: dict,
           quant: Optional[str] = None):
-    """Run ``len(batches)`` steps from ``weights``: returns the losses, the
-    first step's gradients and the parameters' change over all steps."""
+    """Run ``len(batches)`` steps from ``weights``, with ``logits(x,
+    params, cfg, quant)`` the network's logits of one utterance: returns
+    the losses, the first step's gradients and the parameters' change over
+    all steps."""
     tc = cfg["train"]
     if tc["optimizer"] != "momentum" or tc["l2"] != 0.0:
         raise NotImplementedError("the reference trains with plain momentum SGD")
@@ -57,14 +59,16 @@ def steps(weights: Dict[str, torch.Tensor], batches: List, cfg: dict,
         total = float(w.sum())
         loss = 0.0
         for i in range(x.shape[0]):
-            logits = rconf.logits(x[i].float(), params, cfg, q)
-            ce = F.cross_entropy(logits.double(), y[i].long(), reduction="none")
+            ce = F.cross_entropy(logits(x[i].float(), params, cfg, q).double(), y[i].long(),
+                                 reduction="none")
             part = (ce * w[i].double()).sum() / total
             part.backward()
             loss += float(part.detach())
         losses.append(loss)
         with torch.no_grad():
             for k, p in params.items():
+                if p.grad is None:  # a leaf the logits do not read has no gradient
+                    p.grad = torch.zeros_like(p)
                 g = p.grad
                 buf[k] = g.clone() if k not in buf else buf[k].mul_(tc["momentum"]).add_(g)
                 p.sub_(tc["learning_rate"] * buf[k])

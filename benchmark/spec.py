@@ -1,10 +1,21 @@
 """What a run is: its cell, configuration and traffic, found by name.
 
-Everything that belongs to one configuration, traffic mix or per-layer
-metric sits in a file of its own, found from the names in
-``BENCHMARK.json``: the configuration's ``file``,
-``benchmark/traffic/<traffic>.json`` (whose ``job`` names the module of
-``benchmark/jobs`` that drives it) and ``benchmark/metrics/<metric>.py``.
+Everything that belongs to one configuration, acoustic model, traffic mix
+or per-layer metric sits in a file of its own, found from the names in
+``BENCHMARK.json``: the configuration's ``file``, the module of
+``benchmark/models`` that the configuration's ``"scorer"`` names
+(:func:`model`), ``benchmark/traffic/<traffic>.json`` (whose ``job``
+names the module of ``benchmark/jobs`` that drives it) and
+``benchmark/metrics/<metric>.py``.
+
+A model module provides ``draw``, ``weights`` and ``tiny`` for every job;
+``scorer``, ``forward_work`` and ``reference_scores`` to decode;
+``net``, ``train_step_work`` and ``reference_logits`` to train; and
+``mixtures`` for the align job's EM statistics
+(``benchmark/models/__init__.py`` says what each is). A new acoustic
+model is new files: its configuration, ``models/<name>.py``, its plain
+reference under ``reference/``, its counts under ``counts/``, its metric
+readers and its entries in ``BENCHMARK.json``.
 """
 
 from __future__ import annotations
@@ -57,6 +68,18 @@ def resolve(bench: dict, workload: str, **kw) -> Run:
 def job(run: Run):
     """The module that drives the run's traffic."""
     return importlib.import_module(f"benchmark.jobs.{run.traffic['job']}")
+
+
+def model(cfg: dict):
+    """The module of ``benchmark/models`` that ``cfg["scorer"]`` names."""
+    name = cfg["scorer"]
+    try:
+        return importlib.import_module(f"benchmark.models.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"benchmark.models.{name}":
+            raise
+    known = sorted(p.stem for p in (HERE / "models").glob("*.py") if not p.stem.startswith("_"))
+    raise KeyError(f"no acoustic model {name!r}: no benchmark/models/{name}.py; have {known}")
 
 
 def metrics_of(bench: dict, workload: str, kind: str) -> List[dict]:

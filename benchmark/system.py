@@ -1,12 +1,19 @@
 """The system under test, drawn from a seed and built by the port's builders.
 
 :func:`draw` makes every input the recognizer is built from (the lexicon,
-the LM, the GMM parameters or the conformer's priors, the LDA) as plain
-Python and numpy data from ``--seed``; it follows the draws of the port's
+the LM, the acoustic model's draws, the LDA) as plain Python and numpy
+data from ``--seed``; it follows the draws of the port's
 ``synthetic.build_setup`` (itself the reference benchmark's
 ``bench.py:35-276``), vectorised where that copy looped. The plain
 reference reads the same data; only :func:`build` hands it to the port.
-The conformer's weights are drawn on the card (:func:`draw_conformer`).
+
+The acoustic model is found by name, as the traffic's job and the
+metrics' readers are: the configuration's ``"scorer"`` names a module of
+``benchmark/models`` (``spec.model``), which draws the model's own data,
+draws its weights on the device, builds the port's scorer (and network),
+counts its work and holds its plain reference (its interface:
+``benchmark/models/__init__.py``). This module keeps what every model
+shares: the frontend, lexicon, tree, LM and decoder.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
+
+from . import spec
 
 
 @dataclasses.dataclass
@@ -27,14 +35,13 @@ class Draws:
     words: List[Tuple[str, List[str]]]  # (orth, pronunciation) in lexicon order
     vocab: Dict[str, int]  # LM word ids
     ngrams: Dict[Tuple[int, ...], Tuple[float, float]]  # -> (-log p, -log backoff)
+    acoustic: Dict[str, np.ndarray]  # the model's draws (benchmark/models/<scorer>.py::draw)
     lda: np.ndarray  # [lda_in, feat_dim]
-    gmm: Optional[Dict[str, np.ndarray]] = None  # means, variances, weights [M, K(, D)]
-    prior_counts: Optional[np.ndarray] = None  # [M], the conformer's class counts
 
 
 def draw(cfg: dict, seed: int) -> Draws:
-    """The configuration's lexicon, LM, acoustic parameters and LDA from
-    ``seed``."""
+    """The configuration's lexicon, LM, acoustic model's draws and LDA
+    from ``seed``."""
     rng = np.random.default_rng(seed)
     lx, lm = cfg["lexicon"], cfg["lm"]
     phones = [f"p{i}" for i in range(lx["num_phones"])]
@@ -60,81 +67,12 @@ def draw(cfg: dict, seed: int) -> Draws:
         ngrams[(x, y)] = (c, 0.0)
     M = cfg["tying"]["num_classes"]
     D = cfg["frontend"]["feat_dim"]
-    out = Draws(phones, words, vocab, ngrams, lda=None)
-    if cfg["scorer"] == "gmm":
-        K = cfg["gmm"]["densities"]
-        out.gmm = {
-            "means": rng.normal(size=(M, K, D)).astype(np.float32),
-            "variances": (0.5 + rng.uniform(size=(M, K, D))).astype(np.float32),
-            "weights": np.full((M, K), 1.0 / K, np.float32),
-        }
-    else:
-        out.prior_counts = rng.uniform(*cfg["conformer"]["prior_counts"], size=M).astype(
-            np.float32)
-    out.lda = (rng.normal(size=(cfg["frontend"]["lda_in"], D)) * 0.1).astype(np.float32)
-    return out
-
-
-# ------------------------------------------------------------------ conformer
-def conformer_param_specs(cfg: dict, in_dim: int, classes: int):
-    """``(name, shape, init)`` of every conformer parameter, named as the
-    port's ``ConformerEncoderNet`` state dict names them. ``init`` is
-    ``("lecun", fan_in)``, ``"zeros"`` or ``"ones"`` (flax's initializers)."""
-    c = cfg["conformer"]
-    d, ff, k = c["d_model"], c["d_model"] * c["ff_mult"], c["conv_kernel"]
-    specs = []
-
-    def linear(name, n_in, n_out):
-        specs.append((f"{name}.weight", (n_out, n_in), ("lecun", n_in)))
-        specs.append((f"{name}.bias", (n_out,), "zeros"))
-
-    def ln(name):
-        specs.append((f"{name}.weight", (d,), "ones"))
-        specs.append((f"{name}.bias", (d,), "zeros"))
-
-    linear("input_proj", in_dim, d)
-    for i in range(c["num_blocks"]):
-        p = f"block.{i}."
-        ln(p + "ff1_ln"), ln(p + "ff2_ln")
-        linear(p + "ff1_in", d, ff), linear(p + "ff2_in", d, ff)
-        linear(p + "ff1_out", ff, d), linear(p + "ff2_out", ff, d)
-        ln(p + "mhsa_ln")
-        for proj in ("query", "key", "value", "out"):
-            linear(p + "mhsa." + proj, d, d)
-        ln(p + "conv_ln")
-        linear(p + "conv_in", d, 2 * d)
-        specs.append((p + "conv_dw.weight", (d, 1, k), ("lecun", k)))
-        specs.append((p + "conv_dw.bias", (d,), "zeros"))
-        ln(p + "conv_bn")
-        linear(p + "conv_out", d, d)
-        ln(p + "final_ln")
-    linear("output", d, classes)
-    return specs
-
-
-def draw_conformer(cfg: dict, in_dim: int, classes: int, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The conformer's float32 weights, drawn on ``device`` from ``seed`` in
-    one call: lecun-normal kernels (normal truncated to two deviations,
-    by the inverse CDF of one uniform draw), zero biases, unit LayerNorm
-    scales."""
-    specs = conformer_param_specs(cfg, in_dim, classes)
-    sizes = [math.prod(s) for _, s, init in specs if isinstance(init, tuple)]
-    gen = torch.Generator(device=device).manual_seed(seed)
-    lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
-    u = torch.rand(sum(sizes), generator=gen, device=device) * (hi - lo) + lo
-    z = torch.erfinv(2.0 * u - 1.0).mul_(math.sqrt(2.0))
-    out, at = {}, 0
-    for name, shape, init in specs:
-        if init == "zeros":
-            out[name] = torch.zeros(shape, device=device)
-        elif init == "ones":
-            out[name] = torch.ones(shape, device=device)
-        else:
-            n = math.prod(shape)
-            std = math.sqrt(1.0 / init[1]) / 0.87962566103423978
-            out[name] = (z[at:at + n] * std).view(shape)
-            at += n
-    return out
+    # the model's draws come from the same generator between the LM's and the
+    # LDA's, as they did when this function drew each model itself: every
+    # cell's data stays bit-identical for the same seed
+    acoustic = spec.model(cfg).draw(cfg, rng, M, D)
+    lda = (rng.normal(size=(cfg["frontend"]["lda_in"], D)) * 0.1).astype(np.float32)
+    return Draws(phones, words, vocab, ngrams, acoustic, lda)
 
 
 # ---------------------------------------------------------------- the port
@@ -173,16 +111,13 @@ def port_lexicon(cfg: dict, d: Draws):
     return lex, topo, trans, HashTying(cfg["tying"]["num_classes"])
 
 
-def build(cfg: dict, d: Draws, device, weights: Optional[Dict[str, torch.Tensor]] = None,
+def build(cfg: dict, d: Draws, device, weights: Optional[dict] = None,
           decoder: bool = True) -> System:
     """The recognizer from the draws, by the port's own builders: the
     prefix tree with its unigram lookahead, the compiled LM, the frontend,
-    and the GMM or conformer scorer."""
-    from rasr_tpu_torch.models.gmm import MixtureSet
+    and the scorer of the configuration's model (with its ``weights``)."""
     from rasr_tpu_torch.models.lm.arpa import NgramLm
     from rasr_tpu_torch.models.lm.ngram import compile_ngram
-    from rasr_tpu_torch.models.nn import ConformerEncoderNet, NnHybridScorer, StatePriors
-    from rasr_tpu_torch.models.scorer import GmmFeatureScorer
     from rasr_tpu_torch.ops.frontend import FeatureFrontend, FrontendConfig
     from rasr_tpu_torch.search.decoder import TreeDecoder
     from rasr_tpu_torch.search.tree import build_prefix_tree
@@ -195,24 +130,7 @@ def build(cfg: dict, d: Draws, device, weights: Optional[Dict[str, torch.Tensor]
         num_mel=f["num_mel"], num_cepstra=f["num_cepstra"], log_floor=f["log_floor"],
         normalize=f["normalize"])
     frontend = FeatureFrontend(fcfg, splice_context=f["splice_context"], lda=d.lda, device=device)
-    M = cfg["tying"]["num_classes"]
-    if cfg["scorer"] == "gmm":
-        g = cfg["gmm"]
-        K = g["densities"]
-        ms = MixtureSet(means=d.gmm["means"], variances=d.gmm["variances"],
-                        weights=d.gmm["weights"], num_densities=np.full(M, K, np.int32))
-        scorer = GmmFeatureScorer(ms, scale=g["scale"], max_approx=True,
-                                  var_floor=g["var_floor"], device=device)
-    else:
-        c = cfg["conformer"]
-        net = ConformerEncoderNet(M, f["feat_dim"], d_model=c["d_model"],
-                                  num_blocks=c["num_blocks"], num_heads=c["num_heads"],
-                                  ff_mult=c["ff_mult"], conv_kernel=c["conv_kernel"],
-                                  compute_dtype=c["compute_dtype"], device=device)
-        with torch.no_grad():
-            net.load_state_dict(weights, strict=True)
-        scorer = NnHybridScorer(net, None, StatePriors.from_counts(d.prior_counts),
-                                scale=c["scale"], prior_scale=c["prior_scale"], device=device)
+    scorer = spec.model(cfg).scorer(cfg, d, weights, device)
     if not decoder:
         return System(frontend, scorer, None)
     lex, topo, trans, tying = port_lexicon(cfg, d)

@@ -35,7 +35,7 @@ def test_features_and_gmm_scores(gmm_case):
         assert k == rfe.num_frames(int(n[b]), r.cfg)
         rf = rfe.features(x[b, : n[b]].numpy(), d.lda, r.cfg)
         assert np.abs(feats[b, :k].numpy() - rf).max() < 1e-4
-        re = rgmm.scores(torch.from_numpy(rf), d.gmm, 1e-4)
+        re = rgmm.scores(torch.from_numpy(rf), d.acoustic, 1e-4)
         assert (em[b, :k].double() - re).abs().max() < 1e-3
 
 
@@ -105,7 +105,7 @@ def test_a_beam_that_holds_every_hypothesis_finds_the_best_path(cell):
     r.cfg["beam"].update(max_hyps=8192, root_select=0, branch_hyps=0, root_hyps=8192,
                          word_end_limit=8192, root_arc_limit=0, deferred_emission=False)
     d = system.draw(r.cfg, r.seed)
-    w = system.draw_conformer(r.cfg, 45, 60, r.seed, "cpu") if "conformer" in r.cfg else None
+    w = spec.model(r.cfg).weights(r.cfg, r.seed, "cpu")
     s = system.build(r.cfg, d, "cpu", w)
     x, lengths, n = traffic.audio_batch(dict(r.traffic, batch=3, min_s=1.0, max_s=2.0), 16000,
                                         r.seed, 0, "cpu")
@@ -123,7 +123,7 @@ def test_conformer_logits():
     r = tiny_run("conformer-decode")
     cfg = r.cfg
     cfg["conformer"]["compute_dtype"] = "float32"
-    w = system.draw_conformer(cfg, 45, 300, r.seed, "cpu")
+    w = spec.model(cfg).weights(cfg, r.seed, "cpu")
     s = system.build(cfg, system.draw(cfg, r.seed), "cpu", w, decoder=False)
     x = torch.randn(2, 37, 45, generator=torch.Generator().manual_seed(3))
     got = s.scorer.model(x, lengths=torch.tensor([37, 21]))
@@ -136,11 +136,11 @@ def test_training_steps():
     r = tiny_run("conformer-train-ce")
     cfg = r.cfg
     cfg["conformer"]["compute_dtype"] = "float32"
-    w = system.draw_conformer(cfg, 45, 300, r.seed, "cpu")
+    w = spec.model(cfg).weights(cfg, r.seed, "cpu")
     trainer = train_job.build(cfg, w, "cpu")
     pool = traffic.chunk_pool(r.traffic, 45, 300, r.seed, "cpu")[:3]
     losses = [float(trainer._update(*b)[0]) for b in pool]
-    ref_losses, grad, change = rtrain.steps(w, pool, cfg)
+    ref_losses, grad, change = rtrain.steps(rconf.logits, w, pool, cfg)
     assert np.allclose(losses, ref_losses, atol=1e-5)
     names = list(w)
     moved = {n: p.detach() - w[n] for n, p in trainer.model.named_parameters()}
@@ -152,7 +152,6 @@ def test_training_steps():
 def test_alignment_graph_and_statistics(gmm_case):
     from rasr_tpu_torch.align.aligner import BatchAligner
     from rasr_tpu_torch.align.graph import build_linear_graph
-    from rasr_tpu_torch.models.gmm import MixtureSet
     from rasr_tpu_torch.train import em
 
     from benchmark.reference import align as ralign
@@ -170,8 +169,8 @@ def test_alignment_graph_and_statistics(gmm_case):
             b = np.where(np.isinf(b), 1e30, b)
             assert np.allclose(a, b), o
     als = BatchAligner(s.scorer).align_scores(em_scores, graphs, nf)
-    M, K, D = d.gmm["means"].shape
-    mix = MixtureSet(d.gmm["means"], d.gmm["variances"], d.gmm["weights"], np.full(M, K, np.int32))
+    mix = spec.model(r.cfg).mixtures(r.cfg, d)
+    M, K, D = mix.means.shape
     labels = np.full(tuple(feats.shape[:2]), -1, np.int32)
     for i, (o, a) in enumerate(zip(orths, als)):
         labels[i, : a.num_frames] = a.emission_ids
@@ -181,6 +180,7 @@ def test_alignment_graph_and_statistics(gmm_case):
         assert abs(a.score - ref) < 1e-2
         assert abs(ralign.path_cost(*g, e, a.state_indices) - ref) < 1e-2
     acc = em.accumulate(em.GmmAccumulator.zeros(M, K, D), mix, feats, labels)
-    ref = ralign.statistics(feats.reshape(-1, D), torch.as_tensor(labels).reshape(-1), d.gmm, 1e-4)
+    ref = ralign.statistics(feats.reshape(-1, D), torch.as_tensor(labels).reshape(-1),
+                            d.acoustic, 1e-4)
     for got, want in zip((acc.count, acc.sum, acc.sumsq), ref):
         assert np.abs(got - want.numpy()).max() < 1e-4 * np.abs(want.numpy()).max()
