@@ -429,18 +429,35 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     flax's initializers: ``lecun_normal`` kernels (Dense, the attention
     projections, Conv over ``kernel x in / groups``), zero biases,
     LayerNorm scale 1 and bias 0, and for LSTMs ``lecun_normal`` input
-    and orthogonal recurrent kernels per gate. The draws are the port's
+    and orthogonal recurrent kernels per gate. The Zipformer's kinds
+    (``models/zipformer.py``): ``lecun_normal`` Conv2d kernels (over
+    ``in / groups x kh x kw``) and transposed-convolution kernels (over
+    ``in x k``, flax's ``ConvTranspose``), BiasNorm bias and log scale 0,
+    bypass scales 0.5, downsampling weights 0. The draws are the port's
     own, not JAX's."""
+    from .zipformer import BiasNorm, Bypass, Downsample
+
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
             mod.weight.copy_(_lecun(mod.weight.shape, mod.in_features, gen))
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.Conv1d):
-            w = mod.weight  # [out, in / groups, k]
-            w.copy_(_lecun(w.shape, w.shape[1] * w.shape[2], gen))
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+            w = mod.weight  # [out, in / groups, *kernel]
+            w.copy_(_lecun(w.shape, w[0].numel(), gen))
             mod.bias.zero_()
+        elif isinstance(mod, nn.ConvTranspose1d):
+            w = mod.weight  # [in, out / groups, k]
+            w.copy_(_lecun(w.shape, w.shape[0] * w.shape[2], gen))
+            mod.bias.zero_()
+        elif isinstance(mod, BiasNorm):
+            mod.bias.zero_()
+            mod.log_scale.zero_()
+        elif isinstance(mod, Bypass):
+            mod.scale.fill_(0.5)
+        elif isinstance(mod, Downsample):
+            mod.weights.zero_()
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

@@ -272,7 +272,7 @@ def test_aligner_and_graph_spans(recorder):
 #: (benchmark/metrics/) or examples/profile_decode.py
 READ_SPANS = {"decode.dispatch", "decode.read", "decode.read.wait", "align.viterbi",
               "align.read", "align.graph", "decode.capture", "decode.step",
-              *(f"decode.step.{p}" for p in tdec.PHASES)}
+              *(f"decode.step.{p}" for p in tdec.PHASES), "zipformer.forward"}
 #: the spans recorded on a card only (tests/test_torch_cuda.py)
 CARD_SPANS = {"decode.capture"}
 
@@ -296,6 +296,12 @@ def test_every_recorded_span_has_a_reader(recorder):
     for i, a in enumerate(als):
         labels[i, : a.num_frames] = a.emission_ids
     em.accumulate(em.GmmAccumulator.zeros(*ms.means.shape), ms, afeats, labels, device="cpu")
+    from rasr_tpu_torch.models.zipformer import ZipformerEncoderNet
+
+    ZipformerEncoderNet(5, 13, num_encoder_layers=(1,), downsampling_factor=(2,),
+                        encoder_dim=(8,), feedforward_dim=(8,), num_heads=(1,),
+                        cnn_module_kernel=(3,), query_head_dim=4, value_head_dim=2,
+                        pos_head_dim=2, pos_dim=4, device="cpu")(torch.zeros(1, 8, 13))
     assert set(recorder.report()) == READ_SPANS - CARD_SPANS
 
 
